@@ -5,9 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every kernel of the path from the sources in ``src/repro_torch``
-(nvcc, sm_90a), then runs four phases, printing one JSON line each and
-stopping with a non-zero exit at the first that fails:
+It builds every kernel of the paths from the sources in ``src/repro_torch``
+(one nvcc per source for sm_90a, all started together), then runs six
+phases, printing one JSON line each and stopping with a non-zero exit at the
+first that fails:
 
   device     the card's name and power limit (nvidia-smi) and the build time;
   kernels    each kernel against its plain PyTorch version on the card (the
@@ -20,7 +21,20 @@ stopping with a non-zero exit at the first that fails:
              with SkyStore on the kernel engine (card) and on the float64
              torch engine (CPU) -- identical decisions, dollars and counters
              -- and the golden replay fixtures of the SkyStore policy
-             reproduced with the kernel engine.
+             reproduced with the kernel engine;
+  flash      the flash-attention kernel against its plain version on the
+             card (the six CPU-test cases and the serving path's prefill and
+             decode shapes; f32 2e-5, bf16 2e-2), and at the serving shapes
+             its time by CUDA events and by the profiler beside the plain
+             version's, the bound and scaled_dot_product_attention's;
+  serve      the serving path: ``repro_torch.launch.serve`` at full width
+             (llama3.2-1b, bf16, seeded random weights; 6 requests of batch
+             4, 1024-token prompts, 32 generated tokens, three distinct
+             prompts so the KV tier sees three misses and three hits), with
+             the flash launches required to equal layers x (prefills +
+             decode steps), the tier's stored caches unchanged by decoding,
+             and an f32 gate at full width: logits through the kernel
+             against logits through the plain attention.
 
 Then it prints the per-kernel summary line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -42,10 +56,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 
-#: Card peaks used for the bound (NVIDIA H100 SXM data sheet): HBM3 rate and
-#: the float32 rate outside the tensor cores.
+#: Card peaks used for the bound (NVIDIA H100 SXM data sheet): HBM3 rate,
+#: the float32 rate outside the tensor cores and the bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 RTOL, ATOL = 2e-5, 1e-4
 SWEEP = [(1, 800), (3, 800), (17, 800), (64, 800), (5, 123), (2, 1024),
@@ -165,10 +180,33 @@ def device_profile(fn) -> dict:
             "device_idle_share": 1.0 - busy / wall, "ops": ops}
 
 
-def kernel_device_us(prof: dict):
-    """Mean device microseconds of the TTL-scan kernel in a profile."""
-    for name, op in prof.get("ops", {}).items():
-        if "ttl_scan_kernel" in name:
+def host_profile(fn, top: int = 12) -> dict:
+    """Run ``fn`` once under ``cProfile``: the host's wall seconds and the
+    functions with the most own time (a PyTorch op's own time is its
+    dispatch and launch).  cProfile slows Python calls, so the shares, not
+    the seconds, are what this shows."""
+    import cProfile
+    import pstats
+    import torch
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    total = sum(st[2] for st in stats.values())
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {"wall_s": wall, "own_s_total": total, "top": [
+        {"fn": f"{Path(f).name}:{line}({name})", "calls": st[1],
+         "own_s": st[2]} for (f, line, name), st in rows]}
+
+
+def kernel_device_us(prof: dict, name: str = "ttl_scan_kernel"):
+    """Mean device microseconds of the named kernel in a profile."""
+    for key, op in prof.get("ops", {}).items():
+        if name in key:
             return op["mean_us"]
     return None
 
@@ -275,7 +313,7 @@ def phase_kernels(dev) -> dict:
         del t
         torch.cuda.empty_cache()
     emit("kernels", ok=True, ported=["ttl_scan"], rtol=RTOL, atol=ATOL,
-         checks=checks, timings=timings, build_log=ttl_scan._Build.log[-2000:],
+         checks=checks, timings=timings, build_log=ttl_scan.LIBRARY.log[-2000:],
          library_ms=None, library_note=LIBRARY_NOTE)
     return {"max_abs_err": max_abs, "timings": timings}
 
@@ -399,6 +437,246 @@ def golden_skystore(dev) -> list:
     return out
 
 
+# -- the flash-attention kernel ----------------------------------------------
+
+#: (B, Hq, Hkv, Sq, Skv, D, causal, q_offset, dtype): the six cases of
+#: tests/test_kernels.py::test_flash_attention_vs_oracle, then the serving
+#: path's prefill and decode shapes (llama3.2-1b, batch 4, 1024-token prompt,
+#: a decode step late in a 1056-slot cache).
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 64, True, 0, "float32"),
+    (1, 2, 2, 128, 384, 128, False, 0, "float32"),
+    (1, 4, 1, 1, 512, 64, True, 511, "float32"),
+    (2, 2, 2, 200, 200, 80, True, 0, "float32"),
+    (1, 8, 4, 130, 257, 96, True, 0, "float32"),
+    (2, 4, 4, 256, 256, 64, True, 0, "bfloat16"),
+]
+FLASH_PREFILL = (4, 32, 8, 1024, 1024, 64, True, 0, "bfloat16")
+FLASH_DECODE = (4, 32, 8, 1, 1056, 64, True, 1040, "bfloat16")
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def flash_inputs(case, dev):
+    import numpy as np
+    import torch
+
+    b, hq, hkv, sq, skv, d, _causal, _off, dtype = case
+    rng = np.random.default_rng(b * 31 + sq + skv)
+    shapes = ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+            .to(dev, getattr(torch, dtype)) for sh in shapes]
+
+
+def flash_bound_ms(case) -> tuple:
+    """Least time for one call on these inputs: Q and O once, the K/V rows
+    some query attends once, over the HBM rate; against 4 * D operations per
+    attended (query, key) pair (two products) over the peak rate of the
+    inputs' type."""
+    b, hq, hkv, sq, skv, d, causal, off, dtype = case
+    if causal:
+        pairs = sum(max(0, min(skv, off + i + 1)) for i in range(sq))
+        kv_rows = max(0, min(skv, off + sq))
+    else:
+        pairs, kv_rows = sq * skv, skv
+    item = 2 if dtype == "bfloat16" else 4
+    n_bytes = item * (2 * b * hq * sq * d + 2 * b * hkv * kv_rows * d)
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    ops_s = 4 * b * hq * pairs * d / rate
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    return (1e3 * max(bytes_s, ops_s),
+            "bytes" if bytes_s >= ops_s else "operations")
+
+
+def sdpa_call(case, q, k, v):
+    """The library yardstick: one scaled_dot_product_attention call on the
+    same inputs ([B, H, S, D], GQA in the call).  A decode step at q_offset
+    attends keys 0..q_offset, which is SDPA without a mask over those keys."""
+    import torch.nn.functional as F
+
+    causal, off, sq = case[6], case[7], case[3]
+    if causal and off:
+        if sq != 1:
+            raise ValueError("only decode steps carry a q_offset here")
+        k, v = k[:, :, :off + 1], v[:, :, :off + 1]
+        causal = False
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+
+
+def phase_flash(dev) -> dict:
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def swap(x):
+        return x.transpose(1, 2)
+
+    checks, max_abs = [], 0.0
+    for case in FLASH_CASES + [FLASH_PREFILL, FLASH_DECODE]:
+        causal, off, dtype = case[6], case[7], case[8]
+        q, k, v = flash_inputs(case, dev)
+        got = flash_attention(q, k, v, causal=causal, q_offset=off)
+        want = swap(fa.plain(swap(q), swap(k), swap(v), causal, off))
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        excess = float((err - (tol + tol * want.float().abs())).max())
+        ok = bool(torch.isfinite(got).all()) and excess <= 0.0
+        checks.append({"case": list(case), "max_abs_err": float(err.max()),
+                       "max_excess_over_tol": excess, "ok": ok})
+        max_abs = max(max_abs, float(err.max()))
+        if not ok:
+            emit("flash", ok=False, checks=checks)
+            raise SystemExit(f"flash attention disagrees with its plain "
+                             f"version at {case}")
+
+    timings = {}
+    for label, case, n_per in (("prefill", FLASH_PREFILL, 20),
+                               ("decode", FLASH_DECODE, 200)):
+        causal, off = case[6], case[7]
+        q, k, v = flash_inputs(case, dev)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                             q_offset=off), n_per)
+        plain_ms = cuda_ms(lambda: swap(fa.plain(swap(q), swap(k), swap(v),
+                                                  causal, off)), 3)
+        prof = device_profile(lambda: [flash_attention(
+            q, k, v, causal=causal, q_offset=off) for _ in range(n_per)])
+        library_ms = cuda_ms(sdpa_call(case, q, k, v), n_per)
+        bound_ms, bound_by = flash_bound_ms(case)
+        timings[label] = {
+            "case": list(case), "ms": ms, "plain_ms": plain_ms,
+            "kernel_device_us": kernel_device_us(prof, "flash_kernel"),
+            "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit("flash", ok=True, ported=["flash_attention"], tol=FLASH_TOL,
+         checks=checks, timings=timings,
+         build_log=fa.LIBRARY.log[-3000:])
+    return {"max_abs_err": max_abs, "timings": timings}
+
+
+# -- the serving path ----------------------------------------------------------
+
+SERVE_ARGS = ["--arch", "llama3.2-1b", "--no-reduced", "--requests", "6",
+              "--batch", "4", "--prompt-len", "1024", "--gen", "32",
+              "--seed", "0", "--device", "cuda"]
+GATE_LEN = 256
+GATE_REL = 1e-3
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def phase_serve(dev) -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ttl_scan
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import forward
+    from repro_torch.serve import prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = launch_serve.build_parser().parse_args(SERVE_ARGS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.flash_attention_bshd.launches = 0
+    ttl_scan.ttl_cost_surface.launches = 0
+    t0 = time.perf_counter()
+    res = launch_serve.run(args)
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention_bshd.launches
+    ttl_launches = ttl_scan.ttl_cost_surface.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, params, tier = res["cfg"], res["params"], res["tier"]
+    tier_stats = json.loads(json.dumps(tier.stats))     # before the traced run
+
+    prefills = res["hit"].count(False)
+    steps = sum(res["decode_steps"])
+    want_launches = cfg.n_layers * (prefills + steps)
+    tokens = torch.stack(res["tokens"])
+    tokens_ok = (tuple(tokens.shape) == (args.requests, args.batch, args.gen)
+                 and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    prefill_s = [x for x in res["prefill_s"] if x is not None]
+    decode_s = sum(res["decode_s"])
+    n_tok = args.requests * args.batch * args.gen
+
+    # The tier's caches are the prefill's, untouched by the decodes that ran
+    # on clones of them: a fresh prefill of each prompt gives them bit for
+    # bit.  (The tier holds the three prompts' blocks in miss order.)
+    prompts = launch_serve.make_prompts(cfg, args)
+    payload_ok = []
+    for prompt, blk in zip(prompts[:3], tier.blocks.values()):
+        _lg, fresh, _pos = prefill(cfg, params, prompt.to(dev),
+                                   max_len=args.prompt_len + args.gen)
+        stored = blk.payload[0]
+        payload_ok.append(all(
+            torch.equal(stored[g][n][key], fresh[g][n][key])
+            for g in fresh for n in fresh[g] for key in fresh[g][n]))
+        del fresh
+    reuse_agree = float(torch.stack([
+        (tokens[i] == tokens[i + 3]).double().mean() for i in range(3)]).mean())
+
+    # Two more requests (hits) traced: where the card's time goes in decode,
+    # and where the host's goes.
+    def hit_request():
+        launch_serve.serve(cfg, params, prompts[:1], args.gen, tier, dev)
+
+    prof = device_profile(hit_request)
+    host = host_profile(hit_request)
+
+    # The f32 gate at full width: logits through the kernel against logits
+    # through the plain attention, same parameters (bf16 -> f32 is exact).
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32",
+                                param_dtype="float32")
+    p32 = _tree_map(lambda t: t.float(), params)
+    del params, res
+    tier.blocks.clear()
+    torch.cuda.empty_cache()
+    toks = torch.randint(0, cfg.vocab, (1, GATE_LEN),
+                         generator=torch.Generator().manual_seed(12)).to(dev)
+    with torch.no_grad():
+        lk, _, _ = forward(cfg32, p32, toks)
+        lp, _, _ = forward(cfg32, p32, toks, plain_attention=True)
+    torch.cuda.synchronize()
+    diff = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    gate_ok = bool(torch.isfinite(lk).all()) and diff <= GATE_REL * scale
+    gate = {"batch": 1, "seq": GATE_LEN, "max_abs_diff": diff,
+            "max_abs_logit": scale, "limit": GATE_REL * scale,
+            "argmax_agreement":
+                float((lk.argmax(-1) == lp.argmax(-1)).double().mean()),
+            "ok": gate_ok}
+    del p32, lk, lp
+    torch.cuda.empty_cache()
+
+    ok = (launches == want_launches and prefills == 3 and tokens_ok
+          and all(payload_ok) and gate_ok)
+    emit("serve", ok=ok, args=SERVE_ARGS, layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+         vocab=cfg.vocab, prefills=prefills, decode_steps=steps,
+         flash_launches=launches, flash_launches_expected=want_launches,
+         ttl_scan_launches=ttl_launches,
+         prefill_ms=[1e3 * x for x in prefill_s],
+         decode_ms_per_step=1e3 * decode_s / steps,
+         tokens_per_s=n_tok / (sum(prefill_s) + decode_s), wall_s=wall,
+         peak_memory_bytes=peak, tier_stats=tier_stats,
+         tokens_ok=tokens_ok, tier_payload_unchanged=payload_ok,
+         reused_prefix_token_agreement=reuse_agree,
+         traced_hit_request=prof, host_profile_hit_request=host,
+         f32_gate=gate)
+    if not ok:
+        raise SystemExit("serving path check failed")
+    return {"launches": launches, "ttl_launches": ttl_launches}
+
 def main() -> int:
     try:
         import torch
@@ -414,24 +692,32 @@ def main() -> int:
               "of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import ttl_scan
+    from repro_torch.kernels import flash_attention, ttl_scan
     from repro_torch.kernels.ops import resolve_device
 
     dev = resolve_device("cuda")
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    ttl_scan.library()
+    libraries = (ttl_scan.LIBRARY, flash_attention.LIBRARY)
+    for lib in libraries:            # one nvcc per source, all at once
+        lib.start()
+    for lib in libraries:
+        lib.load()
     emit("device", ok=True, nvidia_smi=smi,
          name=torch.cuda.get_device_name(0),
          capability=list(torch.cuda.get_device_capability(0)),
          torch=torch.__version__, cuda=torch.version.cuda,
-         build_s=time.perf_counter() - t0, nvcc_s=ttl_scan._Build.seconds)
+         build_s=time.perf_counter() - t0,
+         nvcc_s={lib.name: lib.seconds for lib in libraries})
 
     kern = phase_kernels(dev)
     phase_decisions(dev)
     launches = phase_replay(dev)
+    flash = phase_flash(dev)
+    serve = phase_serve(dev)
 
     main_t = kern["timings"][0]
+    pre, dec = flash["timings"]["prefill"], flash["timings"]["decode"]
     summary = {"kernels": [{
         "name": "ttl_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ttl_scan.cu",
@@ -443,6 +729,20 @@ def main() -> int:
         "shape": [E_MAIN, C_MAIN],
         "at_scale": {k: kern["timings"][1][k] for k in
                      ("E", "C", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "serve_launches": serve["ttl_launches"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:44",
+        "launches": serve["launches"], "max_abs_err": flash["max_abs_err"],
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"],
+        "library_note": "torch.nn.functional.scaled_dot_product_attention "
+                        "(enable_gqa), timed as a yardstick only",
+        "shape": pre["case"],
+        "decode": {k: dec[k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
     }]}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({**RESULT, **summary}, indent=1))

@@ -10,4 +10,8 @@ unless the caller passes ``device="cpu"``.
               histograms, TTL controller, policies, event spine, simulator
   kernels  -- the hand-written CUDA kernels for sm_90a, their plain PyTorch
               versions, and the wrappers that choose between them
+  configs  -- the model configurations (a verbatim copy of the reference's)
+  models   -- the transformer stack of the dense attention families
+  serve    -- prefill / decode steps and the adaptive-TTL KV tier
+  launch   -- ``python -m repro_torch.launch.serve``, the serving driver
 """

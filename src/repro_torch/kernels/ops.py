@@ -1,15 +1,17 @@
 """Public wrappers around the port's kernels.
 
 Each op accepts natural shapes (numpy arrays or tensors), places them on the
-requested device as float32, runs the kernel there -- its plain version when
-the device is the CPU -- and keeps the epilogue (the TTL = 0 column, the
-argmin, the tie rule) in plain PyTorch, as the JAX reference does.
+requested device, runs the kernel there -- its plain version when the device
+is the CPU -- and keeps the epilogue (the TTL = 0 column, the argmin, the tie
+rule; the GQA fold and layout of attention) in plain PyTorch, as the JAX
+reference does.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention_bshd
 from .ttl_scan import ttl_cost_surface
 
 F32 = torch.float32
@@ -41,6 +43,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _placement(x, device) -> torch.device:
+    """Where an op runs: ``device`` if given; else where the tensor ``x``
+    lies; else (numpy arrays, lists) the card, as every entry point."""
+    if device is not None:
+        return resolve_device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device("cuda")
+
+
 # ---------------------------------------------------------------------------
 # TTL expected-cost scan
 # ---------------------------------------------------------------------------
@@ -53,12 +65,11 @@ def ttl_scan(
 
     Returns ``(best_ttl [E], best_cost [E], cost_surface [E, C+1])`` as
     float32 tensors on ``device`` (default: where ``hist`` lies, else the
-    CPU), where candidate 0 is TTL=0 (evict immediately) and candidate j+1
+    card), where candidate 0 is TTL=0 (evict immediately) and candidate j+1
     is TTL=edges[j].  The surface is the kernel's on a CUDA device and its
     plain version on the CPU.
     """
-    if device is None:
-        device = hist.device if isinstance(hist, torch.Tensor) else CPU
+    device = _placement(hist, device)
 
     def put(x):
         return torch.as_tensor(x, dtype=F32, device=device).contiguous()
@@ -153,3 +164,31 @@ def ttl_scan_from_histograms(
     candidates = torch.cat([edges.new_zeros(1), edges.to(F64)])
     return (candidates[idx], surface[torch.arange(idx.shape[0]), idx],
             surface)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(
+    q: torch.Tensor,             # [B, Hq, Sq, D]
+    k: torch.Tensor,             # [B, Hkv, Skv, D]
+    v: torch.Tensor,             # [B, Hkv, Skv, D]
+    causal: bool = True,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """GQA-aware fused attention -> ``[B, Hq, Sq, D]`` in q's dtype, where
+    the tensors lie: the kernel on a CUDA device, its plain version on the
+    CPU.
+
+    Query head ``h`` attends KV head ``h // (Hq // Hkv)``: the kernel reads
+    it in place, where the TPU wrapper repeats K/V.  The (B, H) fold and the
+    ``[B, H, S, D]`` layout are strided views of the kernel's
+    ``[B, S, H, D]``, so nothing is copied.  The TPU tiling knobs
+    (``block_q``, ``block_kv``) are the kernel's own here.
+    """
+    def swap(x):
+        return x.transpose(1, 2)
+
+    return swap(flash_attention_bshd(swap(q), swap(k), swap(v),
+                                     causal=causal, q_offset=q_offset))

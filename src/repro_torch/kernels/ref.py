@@ -49,3 +49,25 @@ def ttl_cost_ref(
         + tail * e * s
         + s * age_csum
     )
+
+
+def mha_ref(
+    q: torch.Tensor,             # [B, H, Sq, D]
+    k: torch.Tensor,             # [B, H, Skv, D]
+    v: torch.Tensor,             # [B, H, Skv, D]
+    causal: bool = True,
+    scale: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Plain softmax attention in fp32, output in q's dtype.  ``q_offset``
+    positions q in the kv timeline (decode: q_offset = kv_len - q_len)."""
+    sq, d = q.shape[-2], q.shape[-1]
+    skv = k.shape[-2]
+    scale = (d ** -0.5) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(kpos > qpos, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)

@@ -8,10 +8,9 @@ refresh).  The kernel (``csrc/ttl_scan.cu``) replaces the Pallas TPU kernel
 ``_ttl_scan_kernel`` of ``src/repro/kernels/ttl_scan.py``; its source note
 gives the design and the bound (16 bytes per cell: memory-bound).
 
-The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``build/`` at the repository root, named by a hash of the source so an
-edited source is never served by a stale build.  Nothing is compiled or
-loaded at import: the CPU tests import this module on hosts without a card.
+The library is built by :mod:`repro_torch.kernels.build` (``nvcc`` for
+``sm_90a`` at first use, into ``build/``); nothing is compiled or loaded at
+import.
 
 :func:`ttl_cost_surface` dispatches on where its tensors lie: on the CPU it
 computes the plain PyTorch version (:func:`repro_torch.kernels.ref.ttl_cost_ref`);
@@ -21,63 +20,20 @@ on a CUDA device it launches the kernel or raises.  It never falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from . import ref
-
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ttl_scan.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .build import CudaLibrary
 
 
-class _Build:
-    """The compiled library, loaded once per process."""
-
-    lib = None
-    seconds = None      # nvcc wall time of this process's build (None = reused)
-    log = ""            # nvcc / ptxas output of that build
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        f"nvcc not found: the TTL-scan kernel is built from {SOURCE} at "
-        "first use and needs the CUDA toolkit")
-
-
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    if _Build.lib is not None:
-        return _Build.lib
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"ttl_scan-{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, so)          # atomic: concurrent builds race safely
-        _Build.seconds = time.perf_counter() - t0
-        _Build.log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
+def _bind(lib: ctypes.CDLL) -> None:
     lib.ttl_scan.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                                      ctypes.c_void_p]
     lib.ttl_scan.restype = ctypes.c_int
-    _Build.lib = lib
-    return lib
+
+
+LIBRARY = CudaLibrary("ttl_scan", _bind)
 
 
 def _check(hist, time_w, last, edges, s_price, n_price, first_remote) -> None:
@@ -125,7 +81,7 @@ def ttl_cost_surface(
         raise ValueError(f"ttl_cost_surface runs on cpu or cuda, not "
                          f"{hist.device}")
     _check(hist, time_w, last, edges, s_price, n_price, first_remote)
-    lib = library()
+    lib = LIBRARY.load()
     e_dim, c_dim = hist.shape
     out = torch.empty_like(hist)
     if e_dim == 0:

@@ -1,0 +1,12 @@
+"""The model stack for the dense attention families (the port of
+``repro.models``): llama-style decoders, sliding-window layers, M-RoPE and
+encoder-only stacks.  MLA, MoE, Mamba and RWKV6 wait for a later slice."""
+
+from .transformer import (  # noqa: F401
+    cache_schema,
+    forward,
+    init_cache,
+    init_params,
+    model_schema,
+    params_from_reference,
+)

@@ -71,6 +71,13 @@ def test_the_port_has_the_modules_of_its_slice():
             "traces", "ledger", "routing", "policies", "oracle", "simulator",
             "workloads"}
     assert want <= {p.stem for p in (PORT / "core").glob("*.py")}
-    assert {"ref", "ttl_scan", "ops"} <= {
+    assert {"ref", "ttl_scan", "flash_attention", "build", "ops"} <= {
         p.stem for p in (PORT / "kernels").glob("*.py")}
-    assert (PORT / "kernels" / "csrc" / "ttl_scan.cu").is_file()
+    for src in ("ttl_scan.cu", "flash_attention.cu"):
+        assert (PORT / "kernels" / "csrc" / src).is_file()
+    assert {"layers", "transformer"} <= {
+        p.stem for p in (PORT / "models").glob("*.py")}
+    assert {"decode", "kv_tier"} <= {p.stem for p in (PORT / "serve").glob("*.py")}
+    assert (PORT / "launch" / "serve.py").is_file()
+    assert {p.name for p in (PORT / "configs").glob("*.py")} == {
+        p.name for p in (ROOT / "src" / "repro" / "configs").glob("*.py")}

@@ -1,0 +1,153 @@
+"""The port's serving path against the JAX package's, on the CPU.
+
+Reduced llama3.2-1b with the reference's parameters carried across
+(``params_from_reference``), prompts drawn with numpy from a seed: the
+greedy token streams must be equal, token for token.  The KV tier's
+decisions (TTLs, tiers, moves, stats) must be equal under one injected
+clock: the port's controller decides in float64 on the CPU, bit for bit as
+the reference's numpy engine.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as r_get_config
+from repro.models import init_params as r_init_params
+from repro.serve import greedy_generate as r_greedy_generate
+from repro.serve import prefill as r_prefill
+from repro.serve import serve_step as r_serve_step
+from repro.serve.kv_tier import KVTierManager as RKVTierManager
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import params_from_reference
+from repro_torch.serve import greedy_generate
+from repro_torch.serve.kv_tier import KVTierManager
+
+ARCH = "llama3.2-1b"
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def model():
+    rcfg = r_get_config(ARCH).reduced()
+    rp = r_init_params(jax.random.PRNGKey(0), rcfg)
+    tp = params_from_reference(jax.tree.map(np.asarray, rp),
+                               get_config(ARCH).reduced(), device="cpu")
+    return rcfg, rp, tp
+
+
+@pytest.mark.parametrize("seed,batch,prompt_len,steps",
+                         [(0, 2, 16, 12), (1, 3, 9, 20), (2, 1, 31, 8)])
+def test_greedy_generate_matches_reference(model, seed, batch, prompt_len,
+                                           steps):
+    cfg, rp, tp = model
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    max_len = prompt_len + steps
+    want = r_greedy_generate(cfg, rp, jnp.asarray(prompt), steps, max_len)
+    got = greedy_generate(cfg, tp, torch.from_numpy(prompt), steps, max_len)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _reference_serve(cfg, rp, prompts, gen):
+    """The loop of ``repro.launch.serve.main`` on given prompts and
+    parameters: token streams and hit flags per request."""
+    tier = RKVTierManager(clock=lambda: 0.0)
+    toks_out, hits = [], []
+    for prompt in prompts:
+        pkey = prompt.tobytes()
+        blk = tier.lookup(pkey)
+        p = jnp.asarray(prompt)
+        if blk is None:
+            logits, caches, pos = r_prefill(cfg, rp, p,
+                                            max_len=prompt.shape[1] + gen)
+            tier.insert(pkey, 1, payload=(caches, pos))
+        else:
+            caches, pos = blk.payload
+            logits, caches = r_serve_step(cfg, rp, caches, p[:, -1:], pos - 1)
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        out = [tok]
+        for _ in range(gen - 1):
+            logits, caches = r_serve_step(cfg, rp, caches, tok, pos)
+            pos = pos + 1
+            tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+            out.append(tok)
+        toks_out.append(np.asarray(jnp.concatenate(out, axis=1)))
+        hits.append(blk is not None)
+    return toks_out, hits
+
+
+def test_serve_loop_matches_reference_and_reuses_prefixes(model):
+    """The port's serving loop (prefix reuse through the tier, decode on a
+    clone of the stored caches) gives the reference loop's tokens; a reused
+    prefix gives the tokens its first request gave."""
+    cfg, rp, tp = model
+    args = launch_serve.build_parser().parse_args(
+        ["--requests", "6", "--batch", "2", "--prompt-len", "24", "--gen", "10"])
+    prompts = launch_serve.make_prompts(cfg, args)
+    got = launch_serve.serve(cfg, tp, prompts, args.gen,
+                             KVTierManager(device="cpu"), CPU)
+    want, hits = _reference_serve(cfg, rp, [p.numpy().astype(np.int32)
+                                            for p in prompts], args.gen)
+    assert got["hit"] == hits == [False] * 3 + [True] * 3
+    for g, w in zip(got["tokens"], want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    for i in range(3):
+        np.testing.assert_array_equal(got["tokens"][i].numpy(),
+                                      got["tokens"][i + 3].numpy())
+    assert got["decode_steps"] == [args.gen - 1] * 3 + [args.gen] * 3
+
+
+def test_launch_serve_runs_on_the_cpu(capsys):
+    launch_serve.main(["--device", "cpu", "--reduced", "--requests", "4",
+                       "--batch", "2", "--prompt-len", "12", "--gen", "5"])
+    out = capsys.readouterr().out
+    assert "req 3: hit=yes" in out and "req 2: hit=no" in out
+    assert "40 tokens in" in out and "'misses': 3" in out
+
+
+def test_launch_serve_flags():
+    parser = launch_serve.build_parser()
+    assert parser.parse_args([]).reduced is True
+    assert parser.parse_args(["--no-reduced"]).reduced is False
+    assert parser.parse_args([]).device == "cuda"
+
+
+def test_kv_tier_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVTierManager()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kv_tier_decides_as_the_reference(seed):
+    """Inserts, lookups and scans on an injected clock, enough re-reads to
+    pass the controller's warmup so TTLs come from the histograms: every
+    TTL, tier, move and counter equals the reference's."""
+    rng = np.random.default_rng(seed)
+    now = [0.0]
+    ref = RKVTierManager(clock=lambda: now[0], refresh_period=30.0)
+    port = KVTierManager(clock=lambda: now[0], refresh_period=30.0,
+                         device="cpu")
+    keys = [f"p{i}" for i in range(12)]
+    sizes = {k: int(rng.integers(1 << 16, 1 << 24)) for k in keys}
+    for step in range(400):
+        now[0] += float(rng.exponential(0.4))
+        key = keys[int(rng.zipf(1.6)) % len(keys)]
+        a, b = ref.lookup(key), port.lookup(key)
+        assert (a is None) == (b is None)
+        if a is None:
+            a, b = ref.insert(key, sizes[key]), port.insert(key, sizes[key])
+        assert (a.tier, a.ttl, a.last_access) == (b.tier, b.ttl, b.last_access)
+        if step % 7 == 0:
+            assert ref.scan() == port.scan()
+    assert ref.stats == port.stats
+    assert ref.occupancy() == port.occupancy()
+    assert ref.stats["demotions"] > 0 and ref.stats["promotions"] > 0
+    assert ref.ctl.edge_ttls.keys() == port.ctl.edge_ttls.keys() != set()
+    for k, e in ref.ctl.edge_ttls.items():
+        assert port.ctl.edge_ttls[k].ttl_seconds == e.ttl_seconds
+    assert ref.t_even_seconds() == port.t_even_seconds()

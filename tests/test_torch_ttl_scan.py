@@ -151,3 +151,17 @@ def test_kernel_wrapper_rejects_unsupported_devices_and_inputs():
         ttl_scan._check(prob[0].double(), *prob[1:])
     with pytest.raises(ValueError, match="contiguous"):
         ttl_scan._check(prob[0].t().contiguous().t(), *prob[1:])
+
+
+def test_numpy_inputs_without_a_device_go_to_the_card(monkeypatch):
+    """Like every entry point, ``ops.ttl_scan`` runs on the card unless told
+    otherwise: numpy inputs and no ``device`` raise where there is no card,
+    never run on the CPU on their own; tensors keep their own device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = _problem(3, 800, seed=1)
+    before = ttl_scan.ttl_cost_surface.launches
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.ttl_scan(*prob)
+    _, _, full = ops.ttl_scan(*(torch.from_numpy(x) for x in prob))
+    assert full.device.type == "cpu"
+    assert ttl_scan.ttl_cost_surface.launches == before
