@@ -2,10 +2,11 @@
 shared library with a plain C interface, bound with ``ctypes``.
 
 Each kernel source is compiled at first use into ``build/`` at the repository
-root, named by a hash of the source so an edited source is never served by a
-stale build.  Nothing is compiled or loaded at import: the CPU tests import
-the kernel modules on hosts without a card.  :meth:`CudaLibrary.start` begins
-a build without waiting for it, so several sources compile at once.
+root, named by a hash of the source and of every ``csrc/*.cuh`` header, so
+an edited source or header is never served by a stale build.  Nothing is
+compiled or loaded at import: the CPU tests import the kernel modules on
+hosts without a card.  :meth:`CudaLibrary.start` begins a build without
+waiting for it, so several sources compile at once.
 """
 
 from __future__ import annotations
@@ -52,7 +53,10 @@ class CudaLibrary:
         self._t0 = 0.0
 
     def _target(self) -> Path:
-        tag = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        digest = hashlib.sha256()
+        for path in (self.source, *sorted(CSRC.glob("*.cuh"))):
+            digest.update(path.read_bytes())
+        tag = digest.hexdigest()[:16]
         return BUILD_DIR / f"{self.name}-{tag}.so"
 
     def _tmp(self, so: Path) -> Path:

@@ -1,4 +1,8 @@
-// Streaming (flash) softmax attention for Hopper (sm_90a).
+// Streaming (flash) softmax attention for Hopper (sm_90a): the CUDA-core
+// (`simt`) route of kernels/flash_attention.py.  It takes the float32 calls,
+// whose products must stay float32 for the reference's 2e-5 tolerance, and
+// bf16 prefill at head dims 80 and 96; bf16 prefill at 64 and 128 goes to
+// flash_prefill_sm90.cu, bf16 decode to flash_decode_splitkv.cu.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention.py (launched there by
@@ -21,8 +25,7 @@
 // (Sq 1 against a cache of ~1056 keys) reads 8.7 MB of K/V for 35 MFLOP:
 // bytes bound it, at about 2.6 us.
 //
-// Design (a simple kernel that is right first; `wgmma`, TMA and split-KV
-// for decode are later work).  One block of 256 threads per (batch, KV head,
+// Design.  One block of 256 threads per (batch, KV head,
 // tile of 64 query rows).  The rows of a tile are (position, head) pairs of
 // the KV head's query-head group, row = s * group + g, so a GQA group shares
 // each K/V tile it loads and the KV head is read as h / group in place of

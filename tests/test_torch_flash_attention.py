@@ -11,6 +11,8 @@ The CUDA kernel itself is held against the plain version on the card by
 ``tests/test_torch_flash_attention_cuda.py`` and ``chip_smoke.py``.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,3 +104,112 @@ def test_strided_layouts_go_in_without_copies():
                                   cache_v[1, :, :40], causal=True,
                                   q_offset=35)
     torch.testing.assert_close(got.transpose(1, 2), want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The split-KV route's arithmetic and the route planner
+# ---------------------------------------------------------------------------
+
+#: The decode shape of the serving path at small width: one query position
+#: late in a 1056-slot cache, in f32 and bf16.
+DECODE_CASES = [
+    (2, 8, 2, 1, 1056, 64, True, 1040, jnp.float32),
+    (2, 8, 2, 1, 1056, 64, True, 1040, jnp.bfloat16),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas(case):
+    """The JAX package's Pallas kernel in interpret mode on a case's inputs."""
+    b, hq, hkv, sq, skv, d, causal, off, dtype = case
+    q, k, v = _qkv(b, hq, hkv, sq, skv, d, seed=b * 31 + sq + skv)
+    out = r_ops.flash_attention(
+        *(jnp.asarray(x).astype(dtype) for x in (q, k, v)),
+        causal=causal, q_offset=off, interpret=True)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 17])
+@pytest.mark.parametrize("case", CASES + DECODE_CASES,
+                         ids=lambda c: "-".join(map(str, c[:8])) + f"-{c[8].__name__}")
+def test_split_kv_plain_vs_pallas_kernel(case, splits):
+    """Per-split partials (m, l, acc) merged in split order equal the TPU
+    kernel's streaming softmax, whatever the number of splits."""
+    b, hq, hkv, sq, skv, d, causal, off, dtype = case
+    q, k, v = (torch.from_numpy(x).to(TORCH_DTYPE[dtype]).transpose(1, 2)
+               for x in _qkv(b, hq, hkv, sq, skv, d, seed=b * 31 + sq + skv))
+    got = fa.plain_split_kv(q, k, v, causal, off, splits).transpose(1, 2)
+    assert got.dtype == TORCH_DTYPE[dtype] and got.shape == (b, hq, sq, d)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.float().numpy(), _pallas(case),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n_live,splits,want", [
+    (1041, 9, [(0, 128), (128, 256), (256, 384), (384, 512), (512, 640),
+               (640, 768), (768, 896), (896, 1024), (1024, 1041)]),
+    (1041, 3, [(0, 384), (384, 768), (768, 1041)]),
+    (1041, 1, [(0, 1041)]),
+    (65, 2, [(0, 64), (64, 65)]),
+    (64, 9, [(0, 64)]),
+    (0, 4, [(0, 0)]),
+])
+def test_split_ranges_are_whole_tiles_and_never_empty(n_live, splits, want):
+    got = fa.split_ranges(n_live, splits)
+    assert got == want
+    assert got[0][0] == 0 and got[-1][1] == n_live
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+
+
+def _shapes(b, hq, hkv, sq, skv, d, dtype=torch.bfloat16):
+    return (torch.empty((b, sq, hq, d), dtype=dtype),
+            torch.empty((b, skv, hkv, d), dtype=dtype))
+
+
+@pytest.mark.parametrize("shape,causal,off,want", [
+    # llama3.2-1b serving: prefill, a decode step late in the 1056-slot
+    # cache (1041 live keys: 9 splits x 32 heads >= 2 x 132 blocks), the
+    # hit request's first step, and a long cache.
+    ((4, 32, 8, 1024, 1024, 64), True, 0, ("wgmma", 1)),
+    ((4, 32, 8, 1, 1056, 64), True, 1040, ("splitkv", 9)),
+    ((4, 32, 8, 1, 1056, 64), True, 1023, ("splitkv", 8)),
+    ((4, 32, 8, 1, 8192, 64), True, 8191, ("splitkv", 32)),
+    # a step early in a big cache: the splits follow the live keys
+    ((4, 32, 8, 1, 1056, 64), True, 10, ("splitkv", 1)),
+    # group 7 at D 128 (qwen2-vl-7b 28/4, deepseek-coder-33b 56/8)
+    ((2, 28, 4, 333, 333, 128), True, 0, ("wgmma", 1)),
+    ((1, 56, 8, 200, 200, 128), True, 0, ("wgmma", 1)),
+    ((2, 28, 4, 1, 1056, 128), True, 1000, ("splitkv", 16)),
+    # 64 rows per KV head is still a decode; 65 is not
+    ((1, 8, 2, 16, 200, 64), True, 150, ("splitkv", 3)),
+    ((1, 4, 1, 65, 200, 64), True, 0, ("wgmma", 1)),
+    # the CUDA-core route: D 80 / 96 prefill
+    ((2, 2, 2, 200, 200, 80), True, 0, ("simt", 1)),
+    ((1, 8, 4, 130, 257, 96), True, 0, ("simt", 1)),
+    ((1, 4, 1, 1, 257, 80), True, 256, ("splitkv", 5)),
+    # non-causal decode reads every key
+    ((2, 8, 2, 1, 300, 64), False, 0, ("splitkv", 5)),
+])
+def test_plan_routes_bf16_by_shape(shape, causal, off, want):
+    q, k = _shapes(*shape)
+    assert fa.plan(q, k, causal, off) == want
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 8, 1024, 1024, 64),
+                                   (4, 32, 8, 1, 1056, 64),
+                                   (2, 2, 2, 200, 200, 80),
+                                   (1, 8, 4, 130, 257, 96)])
+def test_plan_sends_float32_to_the_cuda_core_route(shape):
+    """f32 keeps the reference's 2e-5 tolerance only with f32 products."""
+    q, k = _shapes(*shape, dtype=torch.float32)
+    assert fa.plan(q, k, True, 0) == ("simt", 1)
+
+
+def test_decode_splits_fill_the_card():
+    for bh, n_live in ((32, 1041), (32, 8192), (4, 1041), (1, 100), (64, 4096)):
+        splits = fa.decode_splits(bh, n_live)
+        ranges = fa.split_ranges(n_live, splits)
+        assert len(ranges) == splits
+        tiles = [-(-(hi - lo) // fa.DECODE_TILE) for lo, hi in ranges]
+        assert max(tiles) <= fa.DECODE_MAX_TILES or splits * bh >= 2 * fa.H100_SMS
+        assert splits * bh >= min(2 * fa.H100_SMS, bh * -(-n_live // 64))

@@ -1,5 +1,5 @@
-"""The flash-attention CUDA kernel against its plain PyTorch version, on the
-card.
+"""The flash-attention CUDA kernels against their plain PyTorch version, on
+the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA Hopper card
 and skips itself without one.  The file imports only the port (no JAX), so it
@@ -10,9 +10,17 @@ runs as it is on a machine with a card:
 Cases: the six of ``tests/test_kernels.py::test_flash_attention_vs_oracle``,
 the shape of its ``test_flash_attention_block_sweep`` (the TPU block sizes
 are the kernel's own here) and the serving path's prefill and decode
-shapes.  Tolerance: the reference
-sweep's own, 2e-5 in f32 and 2e-2 in bf16 (the kernel rounds the pre-scaled
-q to bf16 and keeps p in fp32; the plain version scales fp32 logits).
+shapes.  Then each route forced on the cases it takes: ``wgmma`` (bf16
+prefill, D 64 / 128, with query groups of 4, 1, 2, 7 and 8), ``splitkv``
+(bf16 with at most 64 query rows per KV head: the serving decode, an
+8,192-key cache, group 7 at D 128, D 80 / 96, short chunks) and ``simt`` in
+bf16; the ``[B, H, S, D]`` view; determinism of decode; the 16-byte
+alignment the bf16 routes need; and each route's counter against the plan.
+Tolerance: the reference sweep's own, 2e-5 in f32 and 2e-2 in bf16 (the
+kernels round the pre-scaled q to bf16, and ``wgmma`` rounds p to bf16 for
+its second product; the plain version scales fp32 logits and keeps p in
+fp32).  The forced routes are held besides to 2**-5 of each output row's
+largest value, which sees a key or split left out of a long decode.
 """
 
 import dataclasses
@@ -106,3 +114,109 @@ def test_model_attention_goes_through_the_kernel(card):
     swa_params = init_params(torch.Generator(device=card).manual_seed(1), swa)
     with pytest.raises(NotImplementedError, match="sliding window"):
         prefill(swa, swa_params, toks, max_len=48)
+
+
+#: (B, Hq, Hkv, Sq, Skv, D, causal, q_offset, route), all bf16.
+ROUTE_CASES = [
+    (2, 4, 2, 256, 256, 64, True, 0, "wgmma"),
+    (1, 2, 2, 128, 384, 128, False, 0, "wgmma"),
+    (1, 4, 1, 1, 512, 64, True, 511, "wgmma"),
+    (2, 4, 4, 256, 256, 64, True, 0, "wgmma"),
+    (1, 2, 2, 384, 384, 64, True, 0, "wgmma"),
+    (4, 32, 8, 1024, 1024, 64, True, 0, "wgmma"),     # serving prefill
+    (2, 28, 4, 333, 333, 128, True, 0, "wgmma"),      # group 7 (qwen2-vl-7b)
+    (1, 56, 8, 200, 200, 128, True, 0, "wgmma"),      # group 7 (deepseek-coder-33b)
+    (1, 8, 2, 100, 356, 64, True, 256, "wgmma"),      # a chunk at an offset
+    (4, 32, 8, 1, 1056, 64, True, 1040, "splitkv"),   # serving decode
+    (4, 32, 8, 1, 8192, 64, True, 8191, "splitkv"),   # an 8,192-key cache
+    (2, 28, 4, 1, 1056, 128, True, 1000, "splitkv"),  # group 7 at D 128
+    (1, 4, 1, 1, 512, 64, True, 511, "splitkv"),
+    (2, 8, 2, 1, 300, 64, False, 0, "splitkv"),
+    (1, 8, 2, 16, 200, 64, True, 150, "splitkv"),     # 64 rows
+    (1, 4, 1, 1, 257, 80, True, 256, "splitkv"),
+    (1, 8, 4, 2, 130, 96, True, 128, "splitkv"),
+    (1, 4, 1, 1, 1056, 64, True, 10, "splitkv"),      # few live keys
+    (2, 2, 2, 200, 200, 80, True, 0, "simt"),
+    (1, 8, 4, 130, 257, 96, True, 0, "simt"),
+]
+
+
+def _bshd(case, dev):
+    b, hq, hkv, sq, skv, d = case[:6]
+    return [x.transpose(1, 2) for x in
+            (torch.from_numpy(a).to(dev, BF16)
+             for a in _qkv(b, hq, hkv, sq, skv, d, seed=b * 31 + sq + skv))]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_each_route_matches_plain_version(card, case):
+    causal, off, route = case[6:]
+    q, k, v = _bshd(case, card)
+    before = dict(fa.flash_attention_bshd.route_launches)
+    got = fa._launch(route, q, k, v, causal, off,
+                     fa.plan(q, k, causal, off)[1])
+    want = fa.plain(q, k, v, causal, off)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bshd.route_launches[route] == before[route] + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    # Beside the reference's tolerance: each output row (a position and
+    # head) within 2**-5 of its largest |value|, a few bf16 ulps.  A decode
+    # step's outputs average over many keys and are about as small as 2e-2,
+    # so only this limit sees a split or a key left out there.
+    row_max = want.float().abs().amax(dim=-1, keepdim=True)
+    assert bool(((got.float() - want.float()).abs() <= 2.0 ** -5 * row_max)
+                .all())
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_route_counters_follow_the_plan(card, case):
+    causal, off = case[6:8]
+    q, k, v = _bshd(case, card)
+    route, _splits = fa.plan(q, k, causal, off)
+    before = dict(fa.flash_attention_bshd.route_launches)
+    total = fa.flash_attention_bshd.launches
+    fa.flash_attention_bshd(q, k, v, causal=causal, q_offset=off)
+    after = fa.flash_attention_bshd.route_launches
+    assert {r: after[r] - before[r] for r in fa.ROUTES} == {
+        r: int(r == route) for r in fa.ROUTES}
+    assert fa.flash_attention_bshd.launches == total + 1
+
+
+def test_decode_is_deterministic(card):
+    q, k, v = _bshd((4, 32, 8, 1, 1056, 64, True, 1040, "splitkv"), card)
+    a = fa.flash_attention_bshd(q, k, v, causal=True, q_offset=1040)
+    b = fa.flash_attention_bshd(q, k, v, causal=True, q_offset=1040)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [(2, 8, 2, 256, 256, 64, True, 0),
+                                  (2, 8, 2, 1, 300, 64, True, 299)])
+def test_bhsd_views_go_in_without_copies(card, case):
+    b, hq, hkv, sq, skv, d, causal, off = case
+    q, k, v = (torch.from_numpy(x).to(card, BF16)
+               for x in _qkv(b, hq, hkv, sq, skv, d, seed=5))
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+    swap = (lambda x: x.transpose(1, 2))
+    want = swap(fa.plain(swap(q), swap(k), swap(v), causal, off))
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+def test_misaligned_layouts_raise(card):
+    q, k, v = _bshd((1, 8, 2, 100, 100, 64, True, 0, "wgmma"), card)
+    wide = torch.zeros(1, 100, 8, 68, dtype=BF16, device=card)
+    wide[..., :64] = q
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention_bshd(wide[..., :64], k, v)
+    flat = torch.zeros(k.numel() + 1, dtype=BF16, device=card)
+    shifted = flat[1:].view(k.shape)
+    shifted.copy_(k)
+    for route, qq in (("wgmma", q), ("splitkv", q[:, :1])):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa._launch(route, qq, shifted, v, True, 99, 1)
+    with pytest.raises(ValueError, match="splitkv route holds"):
+        fa._launch("splitkv", q, k, v, True, 0, 1)
+    with pytest.raises(TypeError):
+        fa._launch("wgmma", q.float(), k.float(), v.float(), True, 0, 1)
