@@ -11,17 +11,28 @@ phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
   device     the card's name and power limit (nvidia-smi) and the build time;
-  kernels    each kernel against its plain PyTorch version on the card (the
-             CPU-test sweep shapes and the §6.7.3 scale, rtol 2e-5 / atol
-             1e-4), its time by CUDA events beside the plain version's and
-             the bound, and how often its TTL index equals the float64 one;
+  kernels    a controller refresh by the profiler: one copy in, one launch,
+             one copy out, nothing else; then the TTL-scan kernel against its
+             plain PyTorch version on the card (the CPU-test sweep shapes and
+             the §6.7.3 scale): the surface within rtol 2e-5 / atol 1e-4, the
+             fused decision's index exactly the plain rule's on the kernel's
+             own surface, a launch without the surface and one shared
+             histogram row (stride 0) equal to the full and stacked
+             launches; two controls that must be caught (a raw argmin on
+             2^-21 near-tie rows, a last occupied cell cut from the inputs);
+             the surface and decision calls' times by CUDA events and by the
+             profiler beside the plain version's and the bound, a whole
+             refresh's host time, and how often its TTL index equals the
+             float64 one;
   decisions  on a replay-harvested histogram corpus, every edge TTL from the
              kernel engine equals the scalar python engine's;
   replay     the main path: a large-tier 9-region zipfian trace replayed
              with SkyStore on the kernel engine (card) and on the float64
-             torch engine (CPU) -- identical decisions, dollars and counters
-             -- and the golden replay fixtures of the SkyStore policy
-             reproduced with the kernel engine;
+             torch engine (CPU) -- identical decisions, dollars and counters,
+             one launch per refresh (and no other device op in the traced
+             replay), each refresh's host time -- and the
+             golden replay fixtures of the SkyStore policy reproduced with
+             the kernel engine;
   flash      the three flash-attention routes against the plain version on
              the card (f32 2e-5, bf16 2e-2): the six CPU-test cases and the
              serving prefill and decode shapes on the planned route, then
@@ -120,14 +131,22 @@ def problem(e_dim: int, c_dim: int, seed: int):
 
 # -- the TTL-scan kernel -----------------------------------------------------
 
-def ttl_scan_bound_ms(e_dim: int, c_dim: int) -> tuple:
-    """Least time for one surface: each input read once and the output
-    written once over the HBM rate, against the float32 operations over the
-    card's float32 peak.  Per cell: 24 operations (midpoint 2, t_hat 1, two
-    products, six prefix-sum adds with the row totals, 13 in the cost
-    expression)."""
-    n_bytes = 4 * (4 * e_dim * c_dim + c_dim + 3 * e_dim)
-    ops_s = 24 * e_dim * c_dim / F32_OPS_PER_S
+def ttl_scan_bound_ms(e_dim: int, c_dim: int, rows=None, surface: bool = True,
+                      decision: bool = False) -> tuple:
+    """Least time for one call: each input read once (``rows`` histogram
+    rows of hist, time_w and last -- 1 when every edge shares one -- the
+    edges and three prices a row) and each output written once (the [E, C]
+    surface if asked; a decision's index, best and TTL = 0 cost a row) over
+    the HBM rate, against the float32 operations over the card's float32
+    peak.  Per cell: 24 operations (midpoint 2, t_hat 1, two products, six
+    prefix-sum adds with the row totals, 13 in the cost expression), and 2
+    more for a decision (the minimum, the threshold test).  Distinct rows
+    are 16 bytes a cell with the surface, 12 without."""
+    rows = e_dim if rows is None else rows
+    n_bytes = 4 * (3 * rows * c_dim + c_dim + 3 * e_dim
+                   + (e_dim * c_dim if surface else 0)
+                   + (3 * e_dim if decision else 0))
+    ops_s = (24 + 2 * decision) * e_dim * c_dim / F32_OPS_PER_S
     bytes_s = n_bytes / HBM_BYTES_PER_S
     return (1e3 * max(bytes_s, ops_s),
             "bytes" if bytes_s >= ops_s else "operations")
@@ -186,11 +205,12 @@ def device_profile(fn) -> dict:
             "device_idle_share": 1.0 - busy / wall, "ops": ops}
 
 
-def host_profile(fn, top: int = 12) -> dict:
+def host_profile(fn, top: int = 12, focus: tuple = ()) -> dict:
     """Run ``fn`` once under ``cProfile``: the host's wall seconds and the
     functions with the most own time (a PyTorch op's own time is its
-    dispatch and launch).  cProfile slows Python calls, so the shares, not
-    the seconds, are what this shows."""
+    dispatch and launch), and the calls, own and cumulative seconds of the
+    functions whose names hold a string of ``focus``.  cProfile slows Python calls, so the
+    shares, not the seconds, are what this shows."""
     import cProfile
     import pstats
     import torch
@@ -206,7 +226,11 @@ def host_profile(fn, top: int = 12) -> dict:
     rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
     return {"wall_s": wall, "own_s_total": total, "top": [
         {"fn": f"{Path(f).name}:{line}({name})", "calls": st[1],
-         "own_s": st[2]} for (f, line, name), st in rows]}
+         "own_s": st[2]} for (f, line, name), st in rows],
+        "focus": [{"fn": f"{Path(f).name}:{line}({name})", "calls": st[1],
+                   "own_s": st[2], "cum_s": st[3]}
+                  for (f, line, name), st in stats.items()
+                  if any(key in name for key in focus)]}
 
 
 def kernel_device_us(prof: dict, name: str = "ttl_scan_kernel"):
@@ -233,30 +257,222 @@ def f64_indices(prob, chunk: int = 8000):
 
 
 def kernel_indices(prob, dev):
-    """Canonical-argmin TTL indices of the kernel surface (with the TTL=0
-    column), as the controller takes them."""
+    """Canonical-argmin TTL indices of the kernel's own surface and TTL = 0
+    column, as the controller takes them."""
     import torch
-    from repro_torch.kernels.ops import _canonical_argmin
-    from repro_torch.kernels.ttl_scan import ttl_cost_surface
+    from repro_torch.kernels.ref import canonical_argmin
+    from repro_torch.kernels.ttl_scan import ttl_decision
 
     t = [torch.as_tensor(x, device=dev).contiguous() for x in prob]
-    hist, time_w, last, edges, s, n, first = t
-    surf = ttl_cost_surface(*t)
-    zero = (first + hist.sum(dim=1)) * n
-    return _canonical_argmin(torch.cat([zero[:, None], surf], dim=1))
+    _idx, _best, zero, surf = ttl_decision(*t, surface=True)
+    return canonical_argmin(torch.cat([zero[:, None], surf], dim=1))
+
+
+#: Rows with known decisions, exact in float32 (tests/test_torch_ttl_scan.py
+#: builds the same): s = 1, n = 2^22, first = 0, edges 1, 2, ..., C.  One
+#: byte re-read in cell TIE_K1 with t_hat 0 and one in cell K2 with t_hat T2:
+#: the cells from TIE_K1 cost A + (j - TIE_K1), A = 2^22 + TIE_K1 + 1, and
+#: the cells from K2 cost T2 = A - delta.  delta 2 is 2^-21 of A: the earlier
+#: candidate is inside the tie band and must win, where a raw argmin takes
+#: the later; delta 8 is 2^-19: the later must win.
+TIE_N, TIE_K1 = 2.0 ** 22, 10
+
+
+def tie_rows(e_dim: int, c_dim: int, delta: float):
+    """(inputs, wanted index, raw-argmin index) for ``e_dim`` equal rows."""
+    import numpy as np
+
+    k2 = min(c_dim - 3, 700)
+    hist = np.zeros((e_dim, c_dim), np.float32)
+    time_w = np.zeros((e_dim, c_dim), np.float32)
+    hist[:, TIE_K1] = hist[:, k2] = 1.0
+    time_w[:, k2] = TIE_N + TIE_K1 + 1 - delta
+    prob = (hist, time_w, np.zeros_like(hist),
+            np.arange(1, c_dim + 1, dtype=np.float32),
+            np.ones(e_dim, np.float32), np.full(e_dim, TIE_N, np.float32),
+            np.zeros(e_dim, np.float32))
+    return prob, (TIE_K1 + 1 if delta < 4 else k2 + 1), k2 + 1
+
+
+def surface_excess(got, want) -> float:
+    """Largest excess of |got - want| over atol + rtol |want|: > 0 fails."""
+    return float(((got - want).abs() - (ATOL + RTOL * want.abs())).max())
+
+
+def decision_checks(t, e_dim: int, c_dim: int) -> dict:
+    """The fused decision on card tensors ``t``: its index is exactly the
+    plain rule's on its own [E, C+1] surface and its cost the surface's
+    there; a launch without the surface decides the same; one histogram
+    shared by every row (stride 0) is bit-equal to it stacked E times."""
+    import torch
+    from repro_torch.kernels import ref, ttl_scan
+
+    idx, best, zero, surf = ttl_scan.ttl_decision(*t, surface=True)
+    full = torch.cat([zero[:, None], surf], dim=1).cpu()
+    want = ref.canonical_argmin(full)
+    index_ok = bool(torch.equal(idx.cpu().long(), want))
+    cost_ok = bool(torch.equal(best.cpu(), full[torch.arange(e_dim), want]))
+    bare = ttl_scan.ttl_decision(*t)
+    null_ok = bare[3] is None and all(
+        torch.equal(a, b) for a, b in zip(bare[:3], (idx, best, zero)))
+    shared = [x[:1].expand(e_dim, c_dim) for x in t[:3]] + list(t[3:])
+    stacked = [x.contiguous() for x in shared[:3]] + list(t[3:])
+    a = ttl_scan.ttl_decision(*shared, surface=True)
+    b = ttl_scan.ttl_decision(*stacked, surface=True)
+    shared_ok = all(torch.equal(x, y) for x, y in zip(a, b))
+    _, _, p_zero, _ = ref.ttl_decision_ref(*t)
+    return {"index_equals_plain_rule": index_ok, "cost_at_index": cost_ok,
+            "null_surface_equal": null_ok, "shared_row_bit_equal": shared_ok,
+            "zero_column_excess": surface_excess(zero, p_zero),
+            "ok": index_ok and cost_ok and null_ok and shared_ok
+            and surface_excess(zero, p_zero) <= 0.0}
+
+
+def ttl_controls(dev) -> list:
+    """Controls that must be caught: (1) on the constructed 2^-21 near-tie
+    rows the raw argmin of the kernel's own surface must disagree with the
+    kernel's index (which must be the earlier candidate), and at 2^-19 the
+    kernel must take the later one; (2) the kernel's surface with the last
+    occupied cell of row 0 cut from its inputs must fail the rtol 2e-5 /
+    atol 1e-4 comparison with the plain version of the whole inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref, ttl_scan
+
+    out = []
+    for c_dim in (C_MAIN, 257):
+        for delta in (2.0, 8.0):
+            prob, want, raw = tie_rows(E_MAIN, c_dim, delta)
+            t = [torch.as_tensor(x, device=dev) for x in prob]
+            idx, _best, zero, surf = ttl_scan.ttl_decision(*t, surface=True)
+            full = torch.cat([zero[:, None], surf], dim=1)
+            k_idx = sorted(set(idx.cpu().tolist()))
+            raw_idx = sorted(set(torch.argmin(full, dim=1).cpu().tolist()))
+            row = {"control": f"near_tie_2^{-21 if delta < 4 else -19}",
+                   "C": c_dim, "kernel_index": k_idx, "want": want,
+                   "raw_argmin": raw_idx}
+            if delta < 4:   # the raw argmin must be wrong here
+                row["caught"] = k_idx == [want] and raw_idx == [raw]
+            else:
+                row["ok"] = k_idx == [want]
+            out.append(row)
+    prob = problem(E_MAIN, C_MAIN, seed=0)
+    k = int(np.nonzero((prob[0][0] > 0) | (prob[2][0] > 0))[0].max())
+    cut = [x.copy() for x in prob]
+    for a in (0, 1, 2):
+        cut[a][0, k] = 0.0
+    got = ttl_scan.ttl_cost_surface(
+        *[torch.as_tensor(x, device=dev).contiguous() for x in cut])
+    want_s = ref.ttl_cost_ref(
+        *[torch.as_tensor(x, device=dev).contiguous() for x in prob])
+    excess = surface_excess(got, want_s)
+    out.append({"control": "last_occupied_cell_cut", "row": 0, "cell": k,
+                "excess_over_tol": excess, "caught": excess > 0.0})
+    return out
+
+
+def sass_instructions(library) -> dict:
+    """Static SASS instruction count of each kernel in a built library
+    (``cuobjdump -sass``), or why it was not measured: the body of the
+    TTL-scan kernel's row loop is what each row costs in instructions."""
+    import re
+
+    try:
+        out = subprocess.run(
+            ["/usr/local/cuda/bin/cuobjdump", "-sass", str(library._target())],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+    except Exception as exc:  # measurement only: never a gate
+        return {"not_measured": repr(exc)[:300]}
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            counts[name] += 1
+    return counts
+
+
+def refresh_host_us(fn, reps: int) -> float:
+    """Median host microseconds of ``fn`` (a whole refresh: it synchronises)."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return 1e6 * statistics.median(walls)
+
+
+#: The device ops of a controller refresh, as the profiler names them.
+REFRESH_OPS = {"copy_in": "Memcpy HtoD", "launch": "ttl_scan_kernel",
+               "copy_out": "Memcpy DtoH"}
+
+
+def refresh_device_ops(dev, refreshes: int = 3) -> list:
+    """The device ops of single kernel-engine refreshes of a (bucket,
+    region)'s 8 incoming edges, by the profiler, counted by kind.  Each
+    profiling session opens with a primer of four small elementwise kernels,
+    synchronised: in a long process a session has been seen to miss its
+    first device records, and those are then the primer's (counted apart)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.costmodel import pick_regions
+    from repro_torch.core.histogram import AccessHistogram
+    from repro_torch.core.ttl_policy import AdaptiveTTLController
+
+    cat = pick_regions(9)
+    dst = cat.region_names()[0]
+    srcs = [r for r in cat.region_names() if r != dst]
+    prob = problem(1, C_MAIN, seed=0)
+    merged = AccessHistogram(
+        *(torch.from_numpy(x.reshape(-1).astype("float64"))
+          for x in (prob[3], *prob[:3])), float(prob[6][0]), 100)
+    ctl = AdaptiveTTLController(cat, engine="kernel", device=dev)
+    ctl._refresh_batched(merged, dst, srcs, "kernel")
+    out = []
+    for _ in range(refreshes):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            primer = torch.zeros(256, device=dev)
+            for _ in range(3):
+                primer.add_(1.0)
+            torch.cuda.synchronize()
+            ctl._refresh_batched(merged, dst, srcs, "kernel")
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA]
+        ops = {k: sum(name in x for x in names)
+               for k, name in REFRESH_OPS.items()}
+        ops["primer"] = sum("elementwise" in x for x in names)
+        ops["other"] = len(names) - sum(ops.values())
+        out.append(ops)
+    return out
 
 
 def phase_kernels(dev) -> dict:
     import torch
-    from repro_torch.kernels import ref, ttl_scan
-    from repro_torch.kernels.ops import ttl_scan_from_histograms
     from repro_torch.core.costmodel import pick_regions
     from repro_torch.core.histogram import AccessHistogram
+    from repro_torch.kernels import ref, ttl_scan
+    from repro_torch.kernels.ops import _ttl_decide, ttl_scan_from_histograms
 
     def on_card(prob):
         return [torch.as_tensor(x, device=dev).contiguous() for x in prob]
 
-    # Numerics against the plain version, on the card.
+    # A controller refresh is one copy in, one launch and one copy out:
+    # checked first, before any other profiling session of this process.
+    single = refresh_device_ops(dev)
+    if not all(ops["copy_in"] == ops["launch"] == ops["copy_out"] == 1
+               and ops["other"] == 0 for ops in single):
+        emit("kernels", ok=False, refresh_device_ops=single)
+        raise SystemExit("a controller refresh is not one copy each way and "
+                         "one launch")
+
+    # Numerics against the plain version, on the card: the surface, then the
+    # decision taken from it.
     checks, max_abs = [], 0.0
     probs = [(e, c, problem(e, c, seed=e * 1000 + c)) for e, c in SWEEP]
     probs += [(e, C_MAIN, problem(e, C_MAIN, seed=0)) for e in (E_MAIN, E_SCALE)]
@@ -266,60 +482,92 @@ def phase_kernels(dev) -> dict:
         p = ref.ttl_cost_ref(*t)
         torch.cuda.synchronize()
         err = (k - p).abs()
-        excess = float((err - (ATOL + RTOL * p.abs())).max())
-        ok = bool(torch.isfinite(k).all()) and excess <= 0.0
+        excess = surface_excess(k, p)
+        dec = decision_checks(t, e_dim, c_dim)
+        ok = bool(torch.isfinite(k).all()) and excess <= 0.0 and dec["ok"]
         checks.append({"E": e_dim, "C": c_dim, "max_abs_err": float(err.max()),
-                       "max_excess_over_tol": excess, "ok": ok})
+                       "max_excess_over_tol": excess, **dec, "ok": ok})
         max_abs = max(max_abs, float(err.max()))
         if not ok:
             emit("kernels", ok=False, checks=checks)
             raise SystemExit(f"ttl_scan disagrees with its plain version at "
                              f"E={e_dim} C={c_dim}")
+    controls = ttl_controls(dev)
+    if not all(c.get("caught", c.get("ok")) for c in controls):
+        emit("kernels", ok=False, checks=checks, controls=controls)
+        raise SystemExit("a TTL-scan control was not caught")
 
-    # Times, bounds and TTL-index agreement at the main-path and the
-    # §6.7.3 shapes.
+    # Times and bounds at the main-path and the §6.7.3 shapes: the surface
+    # call (distinct rows) and the decision call without the surface (at
+    # E = 8 as the controller makes it: one shared histogram row).
+    cat = pick_regions(9)
+    pairs = [(a, b) for a in cat.region_names()
+             for b in cat.region_names() if a != b]
     timings = []
     for e_dim in (E_MAIN, E_SCALE):
         prob = problem(e_dim, C_MAIN, seed=0)
         t = on_card(prob)
-        n_per = 200 if e_dim == E_MAIN else 5
-        ms = cuda_ms(lambda: ttl_scan.ttl_cost_surface(*t), n_per)
-        plain_ms = cuda_ms(lambda: ref.ttl_cost_ref(*t), n_per)
-        # Device time per launch, apart from the host's issue rate that
-        # back-to-back CUDA-event timing includes at small E.
-        prof = device_profile(
-            lambda: [ttl_scan.ttl_cost_surface(*t) for _ in range(n_per)])
-        bound_ms, bound_by = ttl_scan_bound_ms(e_dim, C_MAIN)
-        share = float((kernel_indices(prob, dev) == f64_indices(prob))
-                      .double().mean())
-        # One whole refresh as the controller runs it: E histograms in
-        # float64 on the host -> float32 on the card -> kernel -> float64
-        # surface back -> canonical argmin.  Host clock.
-        cat = pick_regions(9)
-        pairs = [(a, b) for a in cat.region_names()
-                 for b in cat.region_names() if a != b]
+        main = e_dim == E_MAIN
+        dec_in = ([x[:1].expand(e_dim, C_MAIN) for x in t[:3]] + t[3:]
+                  if main else t)
+        n_per = 200 if main else 5
+        calls = {
+            "surface": (lambda: ttl_scan.ttl_cost_surface(*t),
+                        lambda: ref.ttl_cost_ref(*t),
+                        ttl_scan_bound_ms(e_dim, C_MAIN)),
+            "decision": (lambda: ttl_scan.ttl_decision(*dec_in),
+                         lambda: ref.ttl_decision_ref(*dec_in),
+                         ttl_scan_bound_ms(e_dim, C_MAIN,
+                                           rows=1 if main else None,
+                                           surface=False, decision=True)),
+        }
+        row = {"E": e_dim, "C": C_MAIN,
+               "decision_rows": "one shared row" if main else "distinct"}
+        for name, (call, plain, (bound_ms, bound_by)) in calls.items():
+            ms = cuda_ms(call, n_per)
+            plain_ms = cuda_ms(plain, n_per if main else 1,
+                               reps=15 if main else 3)
+            # Device time per launch, apart from the host's issue rate that
+            # back-to-back CUDA-event timing includes at small E.
+            prof = device_profile(lambda: [call() for _ in range(n_per)])
+            dev_us = kernel_device_us(prof)
+            row[name] = {
+                "ms": ms, "plain_ms": plain_ms, "device_us": dev_us,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound_events": bound_ms / ms,
+                "share_of_bound_device": (None if dev_us is None
+                                          else 1e3 * bound_ms / dev_us)}
+        row["ttl_index_agreement"] = float(
+            (kernel_indices(prob, dev) == f64_indices(prob)).double().mean())
+        # Whole refreshes, host clock: float64 host histograms -> float32 on
+        # the card -> one launch -> decisions back.  Distinct rows through
+        # ttl_scan_from_histograms (with the surface, as before), and one
+        # shared histogram through the controller's decision op.
         targets = [pairs[i % len(pairs)] for i in range(e_dim)]
         edges64 = torch.from_numpy(prob[3].astype("float64"))
         h64 = [torch.from_numpy(x.astype("float64")) for x in prob[:3]]
         hists = [AccessHistogram(edges64, h64[0][i], h64[1][i], h64[2][i],
                                  float(prob[6][i]), 1) for i in range(e_dim)]
-        reps = 50 if e_dim == E_MAIN else 3
-        ttl_scan_from_histograms(hists, cat, targets, device=dev)
-        walls = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            ttl_scan_from_histograms(hists, cat, targets, device=dev)
-            walls.append(time.perf_counter() - t0)
-        timings.append({
-            "E": e_dim, "C": C_MAIN, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / ms, "ttl_index_agreement": share,
-            "kernel_device_us": kernel_device_us(prof),
-            "refresh_us_host": 1e6 * statistics.median(walls)})
-        del t
+        s64 = torch.from_numpy(prob[4].astype("float64"))
+        n64 = torch.from_numpy(prob[5].astype("float64"))
+        reps = 50 if main else 3
+        row["refresh_us_host"] = refresh_host_us(
+            lambda: ttl_scan_from_histograms(hists, cat, targets, device=dev),
+            reps)
+        row["refresh_us_host_shared"] = refresh_host_us(
+            lambda: _ttl_decide(hists[0], s64, n64, dev), reps)
+        if main:   # where a shared refresh's host time goes
+            row["refresh_host_profile"] = host_profile(
+                lambda: [_ttl_decide(hists[0], s64, n64, dev)
+                         for _ in range(200)], top=15)
+        timings.append(row)
+        del t, dec_in
         torch.cuda.empty_cache()
     emit("kernels", ok=True, ported=["ttl_scan"], rtol=RTOL, atol=ATOL,
-         checks=checks, timings=timings, build_log=ttl_scan.LIBRARY.log[-2000:],
+         refresh_device_ops=single, checks=checks, controls=controls,
+         timings=timings,
+         build_log=ttl_scan.LIBRARY.log[-2000:],
+         sass_instructions=sass_instructions(ttl_scan.LIBRARY),
          library_ms=None, library_note=LIBRARY_NOTE)
     return {"max_abs_err": max_abs, "timings": timings}
 
@@ -380,33 +628,72 @@ def phase_replay(dev) -> int:
     cat = pick_regions(9)
     trace = make_workload("zipfian", cat.region_names(), seed=7, tier="large")
 
-    def replay(engine, device):
+    def replay(engine, device, walls=None):
+        """One replay; with ``walls``, the host seconds of each controller
+        refresh (``_refresh_batched``, which ends synchronised) go there."""
         policy = make_policy("skystore", cat, engine=engine, device=device)
+        if walls is not None:
+            make_ctl = policy._mk      # reset() makes a new controller
+
+            def timed_ctl():
+                ctl = make_ctl()
+                inner = ctl._refresh_batched
+
+                def timed(*args):
+                    t0 = time.perf_counter()
+                    out = inner(*args)
+                    walls.append(time.perf_counter() - t0)
+                    return out
+
+                ctl._refresh_batched = timed
+                return ctl
+
+            policy._mk = timed_ctl
+            policy.reset()
         sim = Simulator(cat, policy, mode="FB", track_decisions=True)
         t0 = time.perf_counter()
         report = sim.run(trace)
         secs = time.perf_counter() - t0
         return report, sim.decisions, secs, policy.ctl.n_refreshes
 
+    walls_k, walls_t = [], []
     ttl_scan.ttl_cost_surface.launches = 0
-    rep_k, dec_k, secs_k, refreshes = replay("kernel", dev)
+    rep_k, dec_k, secs_k, refreshes = replay("kernel", dev, walls_k)
     launches = ttl_scan.ttl_cost_surface.launches
-    rep_t, dec_t, secs_t, _ = replay("torch", "cpu")
+    rep_t, dec_t, secs_t, _ = replay("torch", "cpu", walls_t)
     # A third, traced run of the kernel engine: where the card's time goes
-    # and how long it idles (the two runs above are untraced).
+    # and how long it idles (the two runs above are untraced); a fourth under
+    # cProfile: how much of a refresh's host time waits on the card.
     prof = device_profile(lambda: replay("kernel", dev))
+    host = host_profile(lambda: replay("kernel", dev), top=15, focus=(
+        "_refresh_batched", "_ttl_decide", "_launch", "synchronize",
+        "'copy_'"))
     n_ev = len(trace.events)
     same = (dec_k == dec_t, rep_k.components() == rep_t.components(),
             rep_k.counters() == rep_t.counters())
+    # Device ops of the traced replay: no other op, and none of a refresh's
+    # three more often than once a refresh (exactly one each is the kernels
+    # phase's check on single refreshes: a long trace may drop a record).
+    traced = {k: sum(o["count"] for key, o in prof.get("ops", {}).items()
+                     if name in key) for k, name in REFRESH_OPS.items()}
+    traced["other"] = sum(o["count"] for key, o in prof.get("ops", {}).items()
+                          if not any(n in key for n in REFRESH_OPS.values()))
+    traced_ok = "ops" not in prof or (traced["other"] == 0 and all(
+        traced[k] <= refreshes for k in REFRESH_OPS))
     golden = golden_skystore(dev)
-    ok = all(same) and launches > 0 and all(g["ok"] for g in golden)
+    ok = (all(same) and launches == refreshes > 0 and traced_ok
+          and all(g["ok"] for g in golden))
     emit("replay", ok=ok, events=n_ev, gets=rep_k.n_get,
          decisions_identical=same[0], components_identical=same[1],
          counters_identical=same[2], refreshes=refreshes,
-         kernel_launches=launches,
+         kernel_launches=launches, traced_device_ops=traced,
          events_per_s={"kernel_cuda": n_ev / secs_k, "torch_cpu": n_ev / secs_t},
+         refresh_us_host_median={
+             "kernel_cuda": 1e6 * statistics.median(walls_k),
+             "torch_cpu": 1e6 * statistics.median(walls_t)},
          components=rep_k.components(), counters=rep_k.counters(),
-         traced_kernel_replay=prof, golden=golden)
+         traced_kernel_replay=prof, profiled_kernel_replay=host,
+         golden=golden)
     if not ok:
         raise SystemExit("main-path replay check failed")
     return launches
@@ -1008,7 +1295,7 @@ def main() -> int:
     flash = phase_flash(dev)
     serve = phase_serve(dev)
 
-    main_t = kern["timings"][0]
+    main_t, scale_t = kern["timings"]
     t = flash["timings"]
 
     def flash_entry(name, route, row, launches, **extra):
@@ -1026,12 +1313,17 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ttl_scan.cu",
         "replaces": "src/repro/kernels/ttl_scan.py:56",
         "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        **{k: main_t["decision"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "device_us")},
         "library_ms": None, "library_note": LIBRARY_NOTE,
         "shape": [E_MAIN, C_MAIN],
-        "at_scale": {k: kern["timings"][1][k] for k in
-                     ("E", "C", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "call": "decision, one shared histogram row, no surface (a "
+                "controller refresh)",
+        "surface_call": main_t["surface"],
+        "refresh_us_host": {k: main_t[k] for k in
+                            ("refresh_us_host", "refresh_us_host_shared")},
+        "at_scale": {"E": E_SCALE, "C": C_MAIN, "surface": scale_t["surface"],
+                     "decision": scale_t["decision"]},
         "serve_launches": serve["ttl_launches"],
     },
         flash_entry("flash_attention_wgmma", "wgmma", t["wgmma_prefill"],
@@ -1050,7 +1342,7 @@ def main() -> int:
                                            "simt_decode_bf16")}),
     ]}
     OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text(json.dumps({**RESULT, **summary}, indent=1))
+    OUT.write_text(json.dumps({**RESULT, "summary": summary}, indent=1))
     print(json.dumps(summary))
     print(smi)
     print(json.dumps({"ok": True, "device": {

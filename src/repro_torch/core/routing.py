@@ -22,7 +22,7 @@ The region axis is ``sorted(cost.region_names())``.  The scalar tie-break is
 ``min(holders, key=lambda h: (egress_price(h, dst), h))`` -- price first,
 then region *name*.  Because the axis is name-sorted, the first-minimum
 index that ``torch.argmin`` returns on the CPU (the same convention
-``repro_torch.kernels.ops._canonical_argmin`` pins for the TTL surface) lands
+``repro_torch.kernels.ref.canonical_argmin`` pins for the TTL surface) lands
 on exactly the lexicographically-smallest cheapest region.  The argmin stays
 on the CPU: a CUDA argmin is not documented to keep that tie-break.  No tolerance band is
 needed here: both paths read the *same* float from the *same* price table,

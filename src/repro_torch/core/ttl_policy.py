@@ -36,7 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..kernels.ops import resolve_device, ttl_scan_from_histograms
+from ..kernels.ops import _ttl_decide, resolve_device
 from .costmodel import GB, SECONDS_PER_MONTH, CostModel
 from .histogram import AccessHistogram, RollingHistogram, cell_edges, cell_mid
 
@@ -196,8 +196,8 @@ class EdgeTTL:
 #:
 #:   torch    batched float64 :func:`batched_cost_curves` on the CPU --
 #:            bit-identical to the per-edge scalar path;
-#:   kernel   the CUDA kernel via
-#:            :func:`repro_torch.kernels.ops.ttl_scan_from_histograms` on the
+#:   kernel   the CUDA kernel's fused decision (one launch a refresh) via
+#:            :func:`repro_torch.kernels.ops._ttl_decide` on the
 #:            controller's device;
 #:   torch32  the plain float32 version of the same batched path, on the CPU;
 #:   python   the per-edge scalar loop (the reference the equivalence tests
@@ -409,9 +409,15 @@ class AdaptiveTTLController:
                            dtype=F64), s, n)
             idx = torch.argmin(cost, dim=1)
             return ttls[idx], cost[torch.arange(e_dim), idx]
-        # kernel / torch32: the float32 batched scan with float64 candidate
-        # resolution (repro_torch.kernels.ops canonicalizes argmin ties).
-        ttls, costs, _surface = ttl_scan_from_histograms(
-            [merged] * len(srcs), self.cost,
-            [(src, dst) for src in srcs], engine=engine, device=self.device)
+        # kernel / torch32: the float32 decision with float64 candidate
+        # resolution (canonical argmin ties), one histogram shared by every
+        # row and no surface: on the card, one copy in, one launch, one copy
+        # out.
+        s = torch.full((len(srcs),),
+                       self.cost.storage_price(dst) / GB / SECONDS_PER_MONTH,
+                       dtype=F64)
+        n = torch.tensor([self.cost.egress_price(src, dst) / GB
+                          for src in srcs], dtype=F64)
+        device = self.device if engine == "kernel" else torch.device("cpu")
+        ttls, costs, _ = _ttl_decide(merged, s, n, device)
         return ttls, costs

@@ -2,17 +2,19 @@
 
 Each op accepts natural shapes (numpy arrays or tensors), places them on the
 requested device, runs the kernel there -- its plain version when the device
-is the CPU -- and keeps the epilogue (the TTL = 0 column, the argmin, the tie
-rule; the GQA fold and layout of attention) in plain PyTorch, as the JAX
-reference does.
+is the CPU.  The TTL decision (the TTL = 0 column and the tie rule) is the
+TTL-scan kernel's own epilogue; the GQA fold and layout of attention stay in
+plain PyTorch, as in the JAX reference.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import ref
+from . import ttl_scan as _ttl_kernel
 from .flash_attention import flash_attention_bshd
-from .ttl_scan import ttl_cost_surface
+from .ttl_scan import ttl_decision
 
 F32 = torch.float32
 F64 = torch.float64
@@ -66,8 +68,9 @@ def ttl_scan(
     Returns ``(best_ttl [E], best_cost [E], cost_surface [E, C+1])`` as
     float32 tensors on ``device`` (default: where ``hist`` lies, else the
     card), where candidate 0 is TTL=0 (evict immediately) and candidate j+1
-    is TTL=edges[j].  The surface is the kernel's on a CUDA device and its
-    plain version on the CPU.
+    is TTL=edges[j]; the best candidate is the raw argmin, as in the JAX
+    package.  The surface and its TTL = 0 column are the kernel's on a CUDA
+    device and their plain version on the CPU.
     """
     device = _placement(hist, device)
 
@@ -77,39 +80,140 @@ def ttl_scan(
     hist, time_w, last, edges = (put(x) for x in (hist, time_w, last, edges))
     s_price, n_price, first_remote = (put(x) for x in
                                       (s_price, n_price, first_remote))
-    surface = ttl_cost_surface(hist, time_w, last, edges, s_price, n_price,
-                               first_remote)
-
-    # Candidate TTL=0: every re-read pays N; no storage at all.
-    zero = (first_remote + hist.sum(dim=1)) * n_price
+    _idx, _best, zero, surface = ttl_decision(
+        hist, time_w, last, edges, s_price, n_price, first_remote,
+        surface=True)
     full = torch.cat([zero[:, None], surface], dim=1)
     idx = torch.argmin(full, dim=1)
     ttls = torch.cat([edges.new_zeros(1), edges])
     return ttls[idx], full.gather(1, idx[:, None])[:, 0], full
 
 
-#: Relative band for canonicalizing float32 argmin ties.  Exact cost-tie
-#: plateaus exist in real surfaces (zero misses and zero censored tail beyond
-#: a cell make consecutive candidates *exactly* equal in float64); float32
-#: rounding wobble can then move a plain argmin off the plateau start.  Any
-#: band in 2**-22 .. 2**-18 recovers the float64 plateau-start index on the
-#: replay-harvested corpus; 2**-20 sits in the middle of that range.
-TIE_BAND = 2.0 ** -20
-
-
-def _canonical_argmin(surface: torch.Tensor) -> torch.Tensor:
-    """First index within ``TIE_BAND`` of each row minimum, in float64 on the
-    CPU.
-
-    This is the decision rule every float32 engine shares so that the chosen
-    *index* -- and therefore the float64 candidate TTL it maps to -- matches
-    the pure-float64 ``choose_ttl`` argmin even on exact-tie plateaus.
-    (``torch.argmax`` takes no bool tensor; on the cast mask it returns the
-    first maximal index, as ``np.argmax`` does.)
+class _RefreshBuffers:
+    """What a refresh reuses on one card, so that it makes one copy in, one
+    launch and one copy out: pinned float32 host staging for the inputs and
+    its device twin, the device outputs and their pinned host twin (each
+    grown on demand), and the last cell layout seen -- its edges in float32
+    on the card and its float64 candidate grid ``[0, edges...]`` on the host.
     """
-    surf = surface.to(device=CPU, dtype=F64)
-    mn = surf.min(dim=1, keepdim=True).values
-    return torch.argmax((surf <= mn * (1.0 + TIE_BAND)).to(torch.uint8), dim=1)
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host_in = self.dev_in = self.dev_out = self.host_out = None
+        self.layout = self.edges = self.candidates = None
+
+    def inputs(self, n: int):
+        if self.host_in is None or self.host_in.numel() < n:
+            size = max(n, 2 * (0 if self.host_in is None else self.host_in.numel()))
+            self.host_in = torch.empty(size, dtype=F32, pin_memory=True)
+            self.dev_in = torch.empty(size, dtype=F32, device=self.device)
+        return self.host_in[:n], self.dev_in[:n]
+
+    def outputs(self, n: int):
+        if self.host_out is None or self.host_out.numel() < n:
+            size = max(n, 2 * (0 if self.host_out is None else self.host_out.numel()))
+            self.host_out = torch.empty(size, dtype=torch.int32, pin_memory=True)
+            self.dev_out = torch.empty(size, dtype=torch.int32, device=self.device)
+        return self.host_out[:n], self.dev_out[:n]
+
+    def use_layout(self, edges: torch.Tensor) -> None:
+        """Upload ``edges`` (float64, CPU) unless they are the layout on the
+        card already."""
+        if edges is self.layout:
+            return
+        if (self.layout is None or self.layout.shape != edges.shape
+                or not torch.equal(self.layout, edges)):
+            self.edges = edges.to(device=self.device, dtype=F32)
+            self.candidates = torch.cat([edges.new_zeros(1), edges.to(F64)])
+        self.layout = edges
+
+
+_BUFFERS: dict = {}
+
+
+def _ttl_decide(histograms, s_price, n_price, device, surface=False):
+    """One batched TTL decision: E edge rows, each priced against its
+    histogram.
+
+    ``histograms`` -- one AccessHistogram that every row shares, or a list
+                      of E that share one cell layout (a list of one object
+                      repeated is packed as one row);
+    ``s_price``, ``n_price`` -- float64 ``[E]`` CPU tensors ($ / byte-second
+                      at the target, $ / byte on the edge);
+    ``device``     -- the card, or the CPU for the plain version.
+
+    Returns ``(ttls [E], costs [E], surface)`` on the CPU: TTLs from the
+    float64 candidate grid ``[0, edges...]`` by the canonical-argmin index,
+    costs as the float64 of the float32 cost there, and the float32
+    ``[E, C+1]`` surface (column 0 is TTL = 0) when ``surface`` is true,
+    else None.  On a card: the histograms and prices are packed into one
+    pinned float32 staging tensor, copied to the card once (the edges stay
+    there per cell layout), decided by one launch, and the index and cost
+    (and the surface, if asked) copied back once, then one synchronise.
+    """
+    if isinstance(histograms, (list, tuple)):
+        rows = list(histograms)
+        if all(h is rows[0] for h in rows):
+            rows = rows[:1]
+    else:
+        rows = [histograms]
+    for h in rows[1:]:
+        rows[0]._check_layout(h)
+    edges = rows[0].edges
+    e_dim, c_dim, r_dim = s_price.shape[0], edges.shape[0], len(rows)
+    firsts = (torch.full((e_dim,), rows[0].first_read_remote_bytes, dtype=F64)
+              if r_dim == 1 else
+              torch.tensor([h.first_read_remote_bytes for h in rows], dtype=F64))
+
+    if device.type == "cpu":
+        def stack(name):
+            return torch.stack([getattr(h, name) for h in rows]).to(F32)
+
+        idx, best, zero, surf = ref.ttl_decision_ref(
+            stack("hist"), stack("time_weight"), stack("last"),
+            edges.to(F32), s_price.to(F32), n_price.to(F32), firsts.to(F32))
+        candidates = torch.cat([edges.new_zeros(1), edges.to(F64)])
+        full = torch.cat([zero[:, None], surf], dim=1) if surface else None
+        return candidates[idx], best.to(F64), full
+
+    buf = _BUFFERS.get(device)
+    if buf is None:
+        buf = _BUFFERS[device] = _RefreshBuffers(device)
+    buf.use_layout(edges)
+    rc = r_dim * c_dim
+    host_in, dev_in = buf.inputs(3 * rc + 3 * e_dim)
+    for k, name in enumerate(("hist", "time_weight", "last")):
+        torch.cat([getattr(h, name) for h in rows],
+                  out=host_in[k * rc:(k + 1) * rc])
+    prices = host_in[3 * rc:]
+    prices[:e_dim].copy_(s_price)
+    prices[e_dim:2 * e_dim].copy_(n_price)
+    prices[2 * e_dim:].copy_(firsts)
+    dev_in.copy_(host_in, non_blocking=True)
+
+    # Outputs: [surface E*C (if asked) | idx E | best E | zero E], the
+    # surface first so that it starts 16-byte aligned.
+    n_surf = e_dim * c_dim if surface else 0
+    host_out, dev_out = buf.outputs(n_surf + 3 * e_dim)
+    a_in, a_out = dev_in.data_ptr(), dev_out.data_ptr()
+    p_prices, p_dec = a_in + 12 * rc, a_out + 4 * n_surf
+    _ttl_kernel._launch(
+        device, a_in, a_in + 4 * rc, a_in + 8 * rc, 0 if r_dim == 1 else c_dim,
+        buf.edges.data_ptr(), p_prices, p_prices + 4 * e_dim,
+        p_prices + 8 * e_dim, a_out if surface else None, p_dec,
+        p_dec + 4 * e_dim, p_dec + 8 * e_dim, e_dim, c_dim)
+    host_out.copy_(dev_out, non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()
+
+    dec = host_out[n_surf:]
+    idx = dec[:e_dim].long()
+    best = dec[e_dim:2 * e_dim].view(F32).to(F64)
+    full = None
+    if surface:
+        zero = dec[2 * e_dim:].view(F32)
+        full = torch.cat([zero[:, None],
+                          host_out[:n_surf].view(F32).view(e_dim, c_dim)], dim=1)
+    return buf.candidates[idx], best, full
 
 
 #: Engines :func:`ttl_scan_from_histograms` runs: the kernel (its plain
@@ -144,26 +248,12 @@ def ttl_scan_from_histograms(
         raise ValueError(f"unknown ttl_scan engine {engine!r}; have "
                          f"{SCAN_ENGINES}")
     dev = resolve_device(device) if engine == "kernel" else CPU
-    first_h = histograms[0]
-    for h in histograms[1:]:
-        first_h._check_layout(h)
-    edges = first_h.edges
-    hist = torch.stack([h.hist for h in histograms])
-    time_w = torch.stack([h.time_weight for h in histograms])
-    last = torch.stack([h.last for h in histograms])
-    first = torch.tensor([h.first_read_remote_bytes for h in histograms],
-                         dtype=F64)
     s = torch.tensor([cost_model.storage_price(dst) / GB / SECONDS_PER_MONTH
                       for (_src, dst) in targets], dtype=F64)
     n = torch.tensor([cost_model.egress_price(src, dst) / GB
                       for (src, dst) in targets], dtype=F64)
-    _ttl32, _cost32, surface = ttl_scan(hist, time_w, last, edges, s, n,
-                                        first, device=dev)
-    surface = surface.to(device=CPU, dtype=F64)
-    idx = _canonical_argmin(surface)
-    candidates = torch.cat([edges.new_zeros(1), edges.to(F64)])
-    return (candidates[idx], surface[torch.arange(idx.shape[0]), idx],
-            surface)
+    ttls, costs, surface = _ttl_decide(histograms, s, n, dev, surface=True)
+    return ttls, costs, surface.to(F64)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 
 Each function here computes what one hand-written kernel computes, in the
 most obvious way -- no tiling, no streaming -- so it is easy to audit.  The
-kernel wrappers use them for tensors that lie on the CPU, the CPU tests hold
-them against the JAX reference, and ``chip_smoke.py`` holds each kernel
-against its plain version on the card.
+TTL-scan kernel's is in two parts: the surface (:func:`ttl_cost_ref`) and
+the decision taken from it (:func:`ttl_decision_ref`).  The kernel wrappers
+use them for tensors that lie on the CPU, the CPU tests hold them against
+the JAX reference, and ``chip_smoke.py`` holds each kernel against its plain
+version on the card.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def ttl_cost_ref(
     """ExpectedCost(TTL=edges[j]) for every edge and candidate: [E, C].
 
     Mirrors :func:`repro_torch.core.ttl_policy.expected_cost_curve` (candidate
-    TTL=0 is handled by the wrapper, not here).  Works in the inputs' dtype.
+    TTL=0 is :func:`ttl_decision_ref`'s).  Works in the inputs' dtype.
     """
     e = edges[None, :]
     s = s_price[:, None]
@@ -49,6 +51,51 @@ def ttl_cost_ref(
         + tail * e * s
         + s * age_csum
     )
+
+
+#: Relative band for canonicalizing float32 argmin ties.  Exact cost-tie
+#: plateaus exist in real surfaces (zero misses and zero censored tail beyond
+#: a cell make consecutive candidates *exactly* equal in float64); float32
+#: rounding wobble can then move a plain argmin off the plateau start.  Any
+#: band in 2**-22 .. 2**-18 recovers the float64 plateau-start index on the
+#: replay-harvested corpus; 2**-20 sits in the middle of that range.
+TIE_BAND = 2.0 ** -20
+
+
+def canonical_argmin(surface: torch.Tensor) -> torch.Tensor:
+    """First index within ``TIE_BAND`` of each row minimum, in float64 on the
+    CPU: int64 ``[E]``.
+
+    This is the decision rule every float32 engine shares so that the chosen
+    *index* -- and therefore the float64 candidate TTL it maps to -- matches
+    the pure-float64 ``choose_ttl`` argmin even on exact-tie plateaus.  The
+    kernel's epilogue takes the same rule on its own float32 values.
+    (``torch.argmax`` takes no bool tensor; on the cast mask it returns the
+    first maximal index, as ``np.argmax`` does.)
+    """
+    surf = surface.to(device="cpu", dtype=torch.float64)
+    mn = surf.min(dim=1, keepdim=True).values
+    return torch.argmax((surf <= mn * (1.0 + TIE_BAND)).to(torch.uint8), dim=1)
+
+
+def ttl_decision_ref(hist, time_w, last, edges, s_price, n_price,
+                     first_remote):
+    """The plain version of the kernel's decision: ``(idx [E] int64 on the
+    CPU, best [E], zero [E], surface [E, C])``, the last three in the inputs'
+    dtype and where they lie.
+
+    ``zero`` is the TTL = 0 cost (every re-read pays N; no storage at all),
+    ``idx`` the canonical argmin of ``[zero, surface]`` (0 is TTL = 0, j + 1
+    is ``edges[j]``) and ``best`` the cost there.  ``hist``, ``time_w`` and
+    ``last`` may be one row ``[1, C]`` shared by every edge row.
+    """
+    surface = ttl_cost_ref(hist, time_w, last, edges, s_price, n_price,
+                           first_remote)
+    zero = (first_remote + hist.sum(dim=1)) * n_price
+    full = torch.cat([zero[:, None], surface], dim=1)
+    idx = canonical_argmin(full)
+    best = full.gather(1, idx.to(full.device)[:, None])[:, 0]
+    return idx, best, zero, surface
 
 
 def mha_ref(
