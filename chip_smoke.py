@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs six
+(one nvcc per source for sm_90a, all started together), then runs seven
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -33,6 +33,19 @@ first that fails:
              replay), each refresh's host time -- and the
              golden replay fixtures of the SkyStore policy reproduced with
              the kernel engine;
+  live       the live plane: the same trace through ``replay_differential``
+             (simulator and live VirtualStore -> MetadataServer -> CostLedger)
+             with both planes' controllers on the card -- zero divergence,
+             latency streams identical, decisions, dollars, counters and
+             refreshes equal to the same differential on the torch CPU
+             engine, TTL-scan launches equal to the refreshes, a traced
+             live replay with no other device op; SkyStore's 8 golden
+             fixtures through the port's differential on the kernel engine
+             and a control that ``check_golden`` must report; and the S3
+             proxy on 127.0.0.1 (three client regions) over a store on the
+             card, a seeded stream of S3 requests on a virtual clock, every
+             status, body digest and ETag equal to a CPU store driven by
+             direct ``dispatch``, with at least one refresh;
   flash      the three flash-attention routes against the plain version on
              the card (f32 2e-5, bf16 2e-2): the six CPU-test cases and the
              serving prefill and decode shapes on the planned route, then
@@ -730,6 +743,442 @@ def golden_skystore(dev) -> list:
     return out
 
 
+# -- the live plane ------------------------------------------------------------
+
+#: The proxy leg: a seeded stream of S3 requests from three client regions
+#: against one bucket, the clock moving ~1 h a request on average, long
+#: enough for the store's controller to refresh.
+PROXY_REQUESTS, PROXY_KEYS, PROXY_SEED = 400, 6, 15
+PROXY_STEP_S = 3600.0
+
+
+class VirtualClock:
+    """The clock both proxy-leg stores read (replay never reads the host's)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def controller_refreshes(run) -> int:
+    """Refreshes solved by the controllers of one plane's deciders (its
+    policy and, for the live plane, its metadata server)."""
+    return sum(d.ctl.n_refreshes for d in run.deciders
+               if getattr(d, "ctl", None) is not None)
+
+
+def timed_differential(trace, cat, device) -> tuple:
+    """``replay_differential`` with each plane's host seconds and each
+    controller refresh's host seconds recorded by plane."""
+    from repro_torch.core import replay
+    from repro_torch.core.ttl_policy import AdaptiveTTLController
+
+    secs, walls, plane = {}, {"sim": [], "live": []}, ["sim"]
+    runners = {"sim": replay.run_sim_plane, "live": replay.run_live_plane}
+    refresh = AdaptiveTTLController._refresh_batched
+
+    def timed_refresh(self, *args):
+        t0 = time.perf_counter()
+        out = refresh(self, *args)
+        walls[plane[0]].append(time.perf_counter() - t0)
+        return out
+
+    def timed_runner(name):
+        def run(*args, **kw):
+            plane[0] = name
+            t0 = time.perf_counter()
+            out = runners[name](*args, **kw)
+            secs[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    AdaptiveTTLController._refresh_batched = timed_refresh
+    replay.run_sim_plane = timed_runner("sim")
+    replay.run_live_plane = timed_runner("live")
+    try:
+        report = replay.replay_differential(
+            trace, cat, "skystore", routing="auto", track_latency=True,
+            device=device)
+    finally:
+        AdaptiveTTLController._refresh_batched = refresh
+        replay.run_sim_plane = runners["sim"]
+        replay.run_live_plane = runners["live"]
+    return report, secs, walls
+
+
+def golden_live(dev) -> tuple:
+    """SkyStore's 5 workload and 3 outage golden fixtures through the port's
+    differential on the kernel engine (both blocks within 1e-9, counters and
+    availability as pinned, zero divergence), then the control: one live
+    component moved by 1e-8 must be reported."""
+    from repro_torch.core.costmodel import pick_regions
+    from repro_torch.core.replay import (
+        GOLDEN_OUTAGE_PROFILES, GOLDEN_OUTAGE_WORKLOAD, GOLDEN_SEED,
+        GOLDEN_WORKLOADS, check_golden, replay_differential,
+    )
+    from repro_torch.core.workloads import make_outage_schedule, make_workload
+
+    cat = pick_regions(3)
+    golden_dir = str(ROOT / "tests" / "golden" / "replay")
+    reports = []
+    for wl in GOLDEN_WORKLOADS:
+        trace = make_workload(wl, cat.region_names(), seed=GOLDEN_SEED)
+        reports.append(replay_differential(trace, cat, "skystore", workload=wl,
+                                           engine="kernel", device=dev))
+    trace = make_workload(GOLDEN_OUTAGE_WORKLOAD, cat.region_names(),
+                          seed=GOLDEN_SEED)
+    for prof in GOLDEN_OUTAGE_PROFILES:
+        sched = make_outage_schedule(prof, cat.region_names(), trace.duration,
+                                     seed=GOLDEN_SEED)
+        reports.append(replay_differential(
+            trace, cat, "skystore", workload=GOLDEN_OUTAGE_WORKLOAD,
+            outages=sched, outage=prof, engine="kernel", device=dev))
+    rows = [{"fixture": f"{r.workload}@{r.outage}" if r.outage else r.workload,
+             "problems": check_golden([r], golden_dir),
+             "refreshes": sum(controller_refreshes(p) for p in r.planes)}
+            for r in reports]
+    for row in rows:
+        row["ok"] = not row["problems"] and row["refreshes"] > 0
+    bad = reports[0]
+    moved = dict(bad.live_costs, storage=bad.live_costs["storage"] * (1 + 1e-8))
+    caught = check_golden([type(bad)(**{**bad.__dict__, "live_costs": moved})],
+                          golden_dir)
+    control = {"what": "live storage of zipfian/skystore x (1 + 1e-8)",
+               "problems": caught, "caught": len(caught) == 1}
+    return rows, control
+
+
+def proxy_stream(regions):
+    """The proxy leg's requests, drawn from a seed: (seconds since the last
+    request, kind, key, region, arguments), kind one of put / get / head /
+    list / delete / mpu."""
+    import numpy as np
+
+    rng = np.random.default_rng(PROXY_SEED)
+    keys = [f"p{i % 2}/obj-{i}" for i in range(PROXY_KEYS)]
+    out = []
+    for i in range(PROXY_REQUESTS):
+        region = regions[int(rng.integers(0, len(regions)))]
+        key = keys[i] if i < len(keys) else keys[int(rng.integers(0, len(keys)))]
+        kind = ("put" if i < len(keys) else
+                ["put", "get", "head", "list", "delete", "mpu"][int(rng.choice(
+                    6, p=[0.12, 0.6, 0.07, 0.1, 0.04, 0.07]))])
+        args = {}
+        if kind == "put":
+            args["body"] = rng.bytes(int(rng.integers(1, 4096)))
+        elif kind == "get":
+            r = rng.random()
+            if r < 0.2:
+                a = int(rng.integers(0, 4200))
+                args["range"] = f"bytes={a}-{a + int(rng.integers(0, 255))}"
+            elif r < 0.3:
+                args["range"] = f"bytes=-{int(rng.integers(1, 64))}"
+            c = rng.random()
+            if c < 0.1:
+                args["cond"] = "If-None-Match"
+            elif c < 0.15:
+                args["cond"] = "If-Match"
+        elif kind == "list":
+            args = {"max_keys": int(rng.integers(1, 4)),
+                    "delimiter": "/" if rng.random() < 0.5 else None,
+                    "prefix": "p1/" if rng.random() < 0.3 else "",
+                    "resume": rng.random() < 0.6}
+        elif kind == "mpu":
+            args["parts"] = [rng.bytes(int(rng.integers(1, 2048)))
+                             for _ in range(int(rng.integers(1, 4)))]
+        out.append((float(rng.exponential(PROXY_STEP_S)), kind, key, region,
+                    args))
+    return out
+
+
+def _http(endpoint, method, path, body=None, headers=None) -> tuple:
+    import http.client
+    from urllib.parse import urlparse
+
+    u = urlparse(endpoint)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=30)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def _digest(data) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def proxy_leg(dev) -> dict:
+    """The S3 proxy over a VirtualStore on the card (its own SkyStore
+    controller, kernel engine) against a second store on the CPU (torch
+    engine) driven by direct ``dispatch``, both on one virtual clock: every
+    request's status, body digest and ETag equal."""
+    from repro_torch.core import api
+    from repro_torch.core.backends import make_backends
+    from repro_torch.core.costmodel import pick_regions
+    from repro_torch.core.s3_proxy import S3Proxy
+    from repro_torch.core.virtual_store import VirtualStore
+    from repro_torch.kernels import flash_attention, ttl_scan
+
+    cat = pick_regions(3)
+    regions = cat.region_names()
+    clk = VirtualClock()
+    wire = VirtualStore(cat, make_backends(list(regions), "memory"), mode="FB",
+                        clock=clk, device=dev)
+    direct = VirtualStore(cat, make_backends(list(regions), "memory"),
+                          mode="FB", clock=clk, device="cpu")
+    stream = proxy_stream(regions)
+    proxies = {r: S3Proxy(wire, r).start() for r in regions}
+    bucket = "smoke"
+    mismatches, codes, n_http = [], {}, 0
+    etags, token = {}, None
+
+    def run_direct(req):
+        """Direct dispatch as the proxy renders it: (status, body, etag)."""
+        try:
+            resp = direct.dispatch(req)
+        except api.ApiError as e:
+            return e.http_status, None, getattr(e, "etag", None)
+        return 200, resp, getattr(resp, "etag", None)
+
+    def send(region, method, path, body=None, headers=None):
+        nonlocal n_http
+        n_http += 1
+        st, data, hdrs = _http(proxies[region].endpoint, method, path, body,
+                               headers)
+        codes[st] = codes.get(st, 0) + 1
+        return st, data, (hdrs.get("ETag") or "").strip('"') or None
+
+    def check(i, kind, got, want):
+        if got != want:
+            mismatches.append({"i": i, "kind": kind, "wire": got,
+                               "direct": want})
+
+    try:
+        st, _, _ = send(regions[0], "PUT", f"/{bucket}")
+        check(-1, "bucket", st, run_direct(api.CreateBucketRequest(bucket))[0])
+        ttl_scan.ttl_cost_surface.launches = 0
+        flash_attention.reset_launches()
+        for i, (dt, kind, key, region, args) in enumerate(stream):
+            clk.t += dt
+            path = f"/{bucket}/{key}"
+            if kind == "put":
+                got = send(region, "PUT", path, args["body"])
+                st, resp, etag = run_direct(api.PutRequest(
+                    bucket, key, region, body=args["body"]))
+                want = (st, b"" if st == 200 else None, etag)
+                got = (got[0], b"" if got[0] == 200 else None, got[2])
+                if st == 200:
+                    etags[key] = etag
+            elif kind in ("get", "head"):
+                headers, rng_ = {}, None
+                if "range" in args:
+                    headers["Range"] = args["range"]
+                    rng_ = api.parse_range_header(args["range"])
+                cond = args.get("cond")
+                if cond:
+                    headers[cond] = f'"{etags.get(key, "none")}"'
+                match = headers.get("If-Match")
+                none_match = headers.get("If-None-Match")
+                if kind == "get":
+                    st, data, etag = send(region, "GET", path,
+                                          headers=headers)
+                    got = (st, _digest(data) if st in (200, 206) else None,
+                           etag if st in (200, 206, 304) else None)
+                    w_st, resp, w_etag = run_direct(api.GetRequest(
+                        bucket, key, region, range_=rng_, if_match=match,
+                        if_none_match=none_match))
+                    if w_st == 200 and resp.content_range is not None:
+                        w_st = 206
+                    want = (w_st, _digest(resp.body) if w_st in (200, 206)
+                            else None,
+                            w_etag if w_st in (200, 206, 304) else None)
+                else:
+                    st, _data, etag = send(region, "HEAD", path,
+                                           headers={k: v for k, v in headers.items()
+                                                    if k != "Range"})
+                    got = (st, etag if st in (200, 304) else None)
+                    w_st, _resp, w_etag = run_direct(api.HeadRequest(
+                        bucket, key, if_match=match, if_none_match=none_match))
+                    want = (w_st, w_etag if w_st in (200, 304) else None)
+            elif kind == "list":
+                q = f"?list-type=2&max-keys={args['max_keys']}"
+                if args["prefix"]:
+                    q += f"&prefix={args['prefix']}"
+                if args["delimiter"]:
+                    q += f"&delimiter={args['delimiter']}"
+                resume = token if args["resume"] else None
+                if resume:
+                    q += f"&continuation-token={resume}"
+                st, data, _ = send(region, "GET", f"/{bucket}{q}")
+                text = data.decode()
+                got = (st, [s.split("</Key>")[0] for s in text.split("<Key>")[1:]],
+                       [s.split("</Prefix>")[0] for s in
+                        text.split("<CommonPrefixes><Prefix>")[1:]],
+                       text.split("<NextContinuationToken>")[1].split("<")[0]
+                       if "<NextContinuationToken>" in text else None)
+                w_st, resp, _ = run_direct(api.ListRequest(
+                    bucket, prefix=args["prefix"], max_keys=args["max_keys"],
+                    continuation_token=resume, delimiter=args["delimiter"]))
+                want = ((w_st, [s.key for s in resp.contents],
+                         list(resp.common_prefixes),
+                         resp.next_continuation_token) if w_st == 200
+                        else (w_st, [], [], None))
+                token = got[3]
+            elif kind == "delete":
+                got = send(region, "DELETE", path)[0]
+                want = run_direct(api.DeleteObjectRequest(bucket, key,
+                                                          region=region))[0]
+                want = 204 if want == 200 else want
+            else:
+                st, data, _ = send(region, "POST", f"{path}?uploads")
+                uid = data.split(b"<UploadId>")[1].split(b"</UploadId>")[0].decode()
+                w_uid = run_direct(api.CreateMultipartRequest(
+                    bucket, key, region))[1].upload_id
+                got, want = [st, uid], [200, w_uid]
+                for n, part in enumerate(args["parts"], start=1):
+                    got.append(send(region, "PUT",
+                                    f"{path}?partNumber={n}&uploadId={uid}",
+                                    part)[2])
+                    want.append(run_direct(api.UploadPartRequest(
+                        w_uid, n, part))[1].etag)
+                st, data, _ = send(region, "POST", f"{path}?uploadId={uid}")
+                w_st, resp, w_etag = run_direct(api.CompleteMultipartRequest(
+                    bucket, key, region, w_uid))
+                got.append((st, data.split(b"&quot;")[1].decode()
+                            if st == 200 else None))
+                want.append((w_st, w_etag))
+                if w_st == 200:
+                    etags[key] = w_etag
+            check(i, kind, got, want)
+        launches = ttl_scan.ttl_cost_surface.launches
+        flash_launches = flash_attention.flash_attention_bshd.launches
+    finally:
+        for p in proxies.values():
+            p.stop()
+    same_tables = wire.meta.backup() == direct.meta.backup()
+    refreshes = wire.meta.ctl.n_refreshes
+    ok = (not mismatches and same_tables and launches == refreshes > 0
+          and direct.meta.ctl.n_refreshes == refreshes
+          and flash_launches == 0
+          and wire.meta.ctl.device.type == "cuda")
+    return {"ok": ok, "requests": len(stream),
+            "http_requests": n_http, "status_codes": codes,
+            "mismatches": mismatches[:5], "n_mismatches": len(mismatches),
+            "metadata_tables_identical": same_tables,
+            "refreshes": refreshes, "kernel_launches": launches,
+            "other_kernel_launches": flash_launches,
+            "virtual_seconds": clk.t}
+
+
+def phase_live(dev) -> dict:
+    """The live plane on the card: the large-tier differential on the kernel
+    engine against the same differential on the torch CPU engine, a traced
+    live replay, SkyStore's golden fixtures and their control, and the S3
+    proxy leg."""
+    import torch
+    from repro_torch.core.costmodel import pick_regions
+    from repro_torch.core.replay import run_live_plane
+    from repro_torch.core.workloads import make_workload
+    from repro_torch.kernels import flash_attention, ttl_scan
+
+    cat = pick_regions(9)
+    trace = make_workload("zipfian", cat.region_names(), seed=7, tier="large")
+    n_ev = len(trace.events)
+
+    ttl_scan.ttl_cost_surface.launches = 0
+    flash_attention.reset_launches()
+    rep_k, secs_k, walls_k = timed_differential(trace, cat, dev)
+    launches = ttl_scan.ttl_cost_surface.launches
+    flash_launches = flash_attention.flash_attention_bshd.launches
+    rep_t, secs_t, walls_t = timed_differential(trace, cat, "cpu")
+    # Two more runs in the other order (kernel, torch, torch, kernel): the
+    # host varies between runs by more than a refresh's share of the live
+    # plane, so each engine's rate is reported from two runs.
+    _rep, secs_t2, _walls = timed_differential(trace, cat, "cpu")
+    _rep, secs_k2, _walls = timed_differential(trace, cat, dev)
+    del _rep, _walls
+    refreshes = {name: controller_refreshes(run)
+                 for name, run in zip(("sim", "live"), rep_k.planes)}
+    refreshes_t = {name: controller_refreshes(run)
+                   for name, run in zip(("sim", "live"), rep_t.planes)}
+    same = {
+        "decisions": all(a.decisions == b.decisions and a.holders == b.holders
+                         for a, b in zip(rep_k.planes, rep_t.planes)),
+        "components": all(a.report.components() == b.report.components()
+                          for a, b in zip(rep_k.planes, rep_t.planes)),
+        "counters": all(a.report.counters() == b.report.counters()
+                        for a, b in zip(rep_k.planes, rep_t.planes)),
+        "report": rep_k.to_json() == rep_t.to_json(),
+        "refreshes": refreshes == refreshes_t,
+    }
+    diff_ok = (rep_k.ok() and rep_k.n_placement_divergence == 0
+               and rep_k.n_holder_divergence == 0
+               and rep_k.latency["max_rel_delta"] == 0.0)
+
+    # The live plane alone, traced: where the card's time goes, its idle
+    # share, and no device op but a refresh's three.
+    prof = device_profile(lambda: run_live_plane(
+        trace, cat, "skystore", routing="auto", device=dev))
+    traced = {k: sum(o["count"] for key, o in prof.get("ops", {}).items()
+                     if name in key) for k, name in REFRESH_OPS.items()}
+    traced["other"] = sum(o["count"] for key, o in prof.get("ops", {}).items()
+                          if not any(n in key for n in REFRESH_OPS.values()))
+    traced_ok = "ops" not in prof or (traced["other"] == 0 and all(
+        traced[k] <= refreshes["live"] for k in REFRESH_OPS))
+    # And under cProfile: where the live plane's host time goes.
+    host = host_profile(lambda: run_live_plane(
+        trace, cat, "skystore", routing="auto", device=dev), top=15, focus=(
+        "_refresh_batched", "_ttl_decide", "_handle_get", "_policy_put",
+        "expire_replicas", "route_chunk", "_drive_live_spine"))
+
+    golden, control = golden_live(dev)
+    proxy = proxy_leg(dev)
+    torch.cuda.synchronize()
+
+    total = sum(refreshes.values())
+    ok = (diff_ok and all(same.values()) and launches == total > 0
+          and flash_launches == 0 and traced_ok
+          and all(g["ok"] for g in golden) and control["caught"]
+          and proxy["ok"])
+    med = statistics.median
+    emit("live", ok=ok, events=n_ev, gets=rep_k.n_get_checked,
+         buckets=len(trace.buckets), regions=len(cat.region_names()),
+         objects=trace.stats()["objects"],
+         differential={"summary": rep_k.summary_line(),
+                       "placement_divergence": rep_k.n_placement_divergence,
+                       "holder_divergence": rep_k.n_holder_divergence,
+                       "counter_diffs": rep_k.counter_diffs,
+                       "max_rel_cost_delta": rep_k.max_rel_cost_delta,
+                       "latency_max_rel_delta": rep_k.latency["max_rel_delta"],
+                       "ok": diff_ok},
+         identical_to_torch_cpu=same, refreshes=refreshes,
+         kernel_launches=launches, other_kernel_launches=flash_launches,
+         events_per_s={
+             "kernel_cuda": {p: [n_ev / secs_k[p], n_ev / secs_k2[p]]
+                             for p in ("sim", "live")},
+             "torch_cpu": {p: [n_ev / secs_t[p], n_ev / secs_t2[p]]
+                           for p in ("sim", "live")},
+             "order": "kernel, torch, torch, kernel"},
+         refresh_us_host_median={
+             "kernel_cuda": {p: 1e6 * med(walls_k[p]) for p in walls_k
+                             if walls_k[p]},
+             "torch_cpu": {p: 1e6 * med(walls_t[p]) for p in walls_t
+                           if walls_t[p]}},
+         traced_device_ops=traced, traced_live_replay=prof,
+         profiled_live_replay=host,
+         golden=golden, golden_control=control, proxy=proxy,
+         components=rep_k.live_costs, counters=rep_k.sim_counters)
+    if not ok:
+        raise SystemExit("live-plane check failed")
+    return {"launches": launches, "proxy_launches": proxy["kernel_launches"]}
+
+
 # -- the flash-attention kernels ---------------------------------------------
 
 #: (B, Hq, Hkv, Sq, Skv, D, causal, q_offset, dtype): the six cases of
@@ -1292,6 +1741,7 @@ def main() -> int:
     kern = phase_kernels(dev)
     phase_decisions(dev)
     launches = phase_replay(dev)
+    live = phase_live(dev)
     flash = phase_flash(dev)
     serve = phase_serve(dev)
 
@@ -1312,7 +1762,11 @@ def main() -> int:
         "name": "ttl_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ttl_scan.cu",
         "replaces": "src/repro/kernels/ttl_scan.py:56",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "launches": launches + live["launches"] + live["proxy_launches"],
+        "launches_by_path": {"replay": launches,
+                             "live_differential": live["launches"],
+                             "live_proxy": live["proxy_launches"]},
+        "max_abs_err": kern["max_abs_err"],
         **{k: main_t["decision"][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "device_us")},
         "library_ms": None, "library_note": LIBRARY_NOTE,

@@ -1,23 +1,43 @@
-"""The typed operation layer (paper §4.1/§4.3) -- the part the cost plane uses.
+"""The unified typed operation layer (paper §4.1/§4.3).
 
-The PyTorch port's copy of what :class:`~repro_torch.core.simulator.Simulator`
-and :mod:`repro_torch.core.traces` import from :mod:`repro_torch.core.api`: the
-request objects a trace replays as, the structured :class:`ApiError`, and the
-shared placement rules (§2.3 cheapest-source GET routing, §4.4
-write-local/base-pinning).  The live store's responses, multipart and wire
-helpers belong to the live plane and are not ported yet.
+The PyTorch port's copy of :mod:`repro.core.api`; nothing here touches a
+tensor.
+
+SkyStore's promise is a *single* virtual object API that "appears global to
+the user" while hiding multi-cloud placement.  This module is that surface,
+expressed once as typed request/response objects so every layer speaks the
+same language:
+
+  * :class:`~repro_torch.core.virtual_store.VirtualStore` implements the protocol
+    for live serving (bytes actually move between physical backends);
+  * :class:`~repro_torch.core.s3_proxy.S3Proxy` is a pure wire codec: it parses the
+    S3 REST dialect into these request objects and renders the responses back
+    to XML -- it contains no placement logic of its own;
+  * :class:`~repro_torch.core.simulator.Simulator` replays traces as the *same*
+    request objects, so the cost model exercises the identical semantic path
+    as production serving and policy behaviour cannot silently drift.
+
+The shared placement rules (§2.3 cheapest-source GET routing, §4.4
+write-local/base-pinning) live here too, as pure functions consumed by both
+the metadata server and the simulator.
 
 Errors are structured: :class:`ApiError` carries an S3 error code and the
 matching HTTP status.  Codes that correspond to Python lookup failures
 (``NoSuchKey``, ``NoSuchBucket``, ``NoSuchUpload``) also subclass
 :class:`KeyError` (and ``BucketNotEmpty`` subclasses :class:`ValueError`) so
-``except KeyError`` call sites keep working.
+pre-existing ``except KeyError`` call sites keep working unchanged.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple, Union
+import re
+from typing import (
+    Dict, List, Mapping, Optional, Protocol, Sequence, Tuple, Union,
+    runtime_checkable,
+)
 
 # ---------------------------------------------------------------------------
 # Structured errors
@@ -88,14 +108,55 @@ _ERROR_TYPES: Dict[str, type] = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Request / response objects
+# ---------------------------------------------------------------------------
+
 #: An unresolved HTTP byte range: (first, last) where either end may be None
 #: -- (a, None) means "from a to the end", (None, n) means "the last n bytes".
 ByteRange = Tuple[Optional[int], Optional[int]]
 
 
-# ---------------------------------------------------------------------------
-# Request objects
-# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ObjectSummary:
+    key: str
+    size: int
+    etag: str
+    last_modified: float
+
+
+@dataclasses.dataclass
+class Ack:
+    """Empty success response (create/delete bucket, abort, ...)."""
+
+    ok: bool = True
+
+
+# -- bucket ops --------------------------------------------------------------
+
+@dataclasses.dataclass
+class CreateBucketRequest:
+    bucket: str
+    at: Optional[float] = None      # event time; None = implementation clock
+
+
+@dataclasses.dataclass
+class DeleteBucketRequest:
+    bucket: str
+    at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class ListBucketsRequest:
+    at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class ListBucketsResponse:
+    buckets: List[str]
+
+
+# -- object ops --------------------------------------------------------------
 
 @dataclasses.dataclass
 class PutRequest:
@@ -114,6 +175,12 @@ class PutRequest:
 
 
 @dataclasses.dataclass
+class PutResponse:
+    version: int
+    etag: str
+
+
+@dataclasses.dataclass
 class GetRequest:
     bucket: str
     key: str
@@ -126,6 +193,24 @@ class GetRequest:
 
 
 @dataclasses.dataclass
+class GetResponse:
+    body: Optional[bytes]
+    etag: str
+    size: int                       # full object size, even for ranged reads
+    last_modified: float
+    version: int
+    content_range: Optional[Tuple[int, int, int]] = None  # (start, end, total)
+    source_region: Optional[str] = None
+    hit: bool = True
+    #: Post-GET placement choice taken by the serving store -- "store"/"skip"
+    #: on a miss (replicate-on-read or not), "keep"/"evict" on a hit
+    #: (TTL re-arm vs. evict-now).  Internal observability for the
+    #: differential replay harness (covers clairvoyant CGP decisions);
+    #: never serialized on the S3 wire.
+    placement_action: Optional[str] = None
+
+
+@dataclasses.dataclass
 class HeadRequest:
     bucket: str
     key: str
@@ -134,6 +219,15 @@ class HeadRequest:
     if_match: Optional[str] = None
     if_none_match: Optional[str] = None
     at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class HeadResponse:
+    key: str
+    size: int
+    etag: str
+    last_modified: float
+    version: int
 
 
 @dataclasses.dataclass
@@ -149,6 +243,18 @@ class ListRequest:
 
 
 @dataclasses.dataclass
+class ListResponse:
+    contents: List[ObjectSummary]
+    common_prefixes: List[str]
+    is_truncated: bool
+    next_continuation_token: Optional[str]
+
+    @property
+    def key_count(self) -> int:
+        return len(self.contents) + len(self.common_prefixes)
+
+
+@dataclasses.dataclass
 class DeleteObjectRequest:
     bucket: str
     key: str
@@ -156,13 +262,112 @@ class DeleteObjectRequest:
     at: Optional[float] = None
 
 
-#: Every request type a trace replays as.
-Request = Union[PutRequest, GetRequest, HeadRequest, ListRequest,
-                DeleteObjectRequest]
+@dataclasses.dataclass
+class DeleteObjectsRequest:
+    """Batch delete (``POST /bucket?delete``)."""
+
+    bucket: str
+    keys: Sequence[str]
+    region: Optional[str] = None
+    at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class DeleteObjectsResponse:
+    deleted: List[str]
+    errors: List[Tuple[str, str]]   # (key, error code)
+
+
+@dataclasses.dataclass
+class CopyRequest:
+    bucket: str
+    src_key: str
+    dst_key: str
+    region: str
+    at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class CopyResponse:
+    version: int
+    etag: str
+
+
+# -- multipart upload --------------------------------------------------------
+
+@dataclasses.dataclass
+class CreateMultipartRequest:
+    bucket: str
+    key: str
+    region: str
+    at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class CreateMultipartResponse:
+    upload_id: str
+
+
+@dataclasses.dataclass
+class UploadPartRequest:
+    upload_id: str
+    part_number: int
+    body: bytes
+    at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class UploadPartResponse:
+    etag: str
+
+
+@dataclasses.dataclass
+class CompleteMultipartRequest:
+    bucket: str
+    key: str
+    region: str
+    upload_id: str
+    #: The client-supplied part list [(part_number, etag), ...]; None means
+    #: "whatever was uploaded" (legacy clients that send no manifest).
+    parts: Optional[Sequence[Tuple[int, str]]] = None
+    at: Optional[float] = None
+
+
+@dataclasses.dataclass
+class CompleteMultipartResponse:
+    version: int
+    etag: str
+    size: int
+
+
+@dataclasses.dataclass
+class AbortMultipartRequest:
+    upload_id: str
+    at: Optional[float] = None
+
+
+#: Every request type of the op surface (useful for codecs and dispatch maps).
+Request = Union[
+    CreateBucketRequest, DeleteBucketRequest, ListBucketsRequest,
+    PutRequest, GetRequest, HeadRequest, ListRequest,
+    DeleteObjectRequest, DeleteObjectsRequest, CopyRequest,
+    CreateMultipartRequest, UploadPartRequest, CompleteMultipartRequest,
+    AbortMultipartRequest,
+]
+
+
+@runtime_checkable
+class ObjectStoreAPI(Protocol):
+    """The single entry point every layer implements: one typed op in, one
+    typed response out, :class:`ApiError` on failure."""
+
+    def dispatch(self, op: Request):
+        ...
 
 
 # ---------------------------------------------------------------------------
-# Shared placement semantics (§2.3 / §4.4)
+# Shared placement semantics (§2.3 / §4.4) -- one rule set for the live
+# store and the cost simulator.
 # ---------------------------------------------------------------------------
 
 #: The immutable "everything is up" default for availability-aware helpers.
@@ -256,3 +461,79 @@ def resolve_put_placement(
         return PutPlacement(base, False, False, sync_deferred=True)
     return PutPlacement(base, False, True)
 
+
+# ---------------------------------------------------------------------------
+# Wire-level helpers (HTTP Range, conditional headers, continuation tokens)
+# ---------------------------------------------------------------------------
+
+_RANGE_RE = re.compile(r"^bytes=(\d*)-(\d*)$")
+
+
+def parse_range_header(header: str) -> ByteRange:
+    """``bytes=a-b`` / ``bytes=a-`` / ``bytes=-n`` -> an unresolved ByteRange.
+    Multi-range requests are not supported."""
+    m = _RANGE_RE.match(header.strip())
+    if not m or (not m.group(1) and not m.group(2)):
+        raise ApiError("InvalidRange", f"unparseable Range {header!r}")
+    first = int(m.group(1)) if m.group(1) else None
+    last = int(m.group(2)) if m.group(2) else None
+    if first is not None and last is not None and last < first:
+        raise ApiError("InvalidRange", f"inverted Range {header!r}")
+    return first, last
+
+
+def resolve_range(
+    rng: Optional[ByteRange], size: int,
+) -> Optional[Tuple[int, int]]:
+    """Resolve an unresolved range against the object size into inclusive
+    ``(start, end)``; raises ``InvalidRange`` (HTTP 416) if unsatisfiable."""
+    if rng is None:
+        return None
+    first, last = rng
+    if first is None:                      # suffix: last `last` bytes
+        if not last or size == 0:
+            raise ApiError("InvalidRange", f"unsatisfiable suffix range on size {size}")
+        return max(0, size - last), size - 1
+    if first >= size:
+        raise ApiError("InvalidRange", f"start {first} beyond size {size}")
+    end = size - 1 if last is None else min(last, size - 1)
+    return first, end
+
+
+def etag_matches(etag: str, header: str) -> bool:
+    """RFC 7232 If-(None-)Match comparison (weak validators compared
+    byte-equal after stripping the ``W/`` prefix and quotes)."""
+    if header.strip() == "*":
+        return True
+    candidates = [c.strip() for c in header.split(",")]
+    norm = etag.strip('"')
+    for c in candidates:
+        if c.startswith("W/"):
+            c = c[2:]
+        if c.strip('"') == norm:
+            return True
+    return False
+
+
+def check_preconditions(
+    etag: str, if_match: Optional[str], if_none_match: Optional[str],
+) -> None:
+    """Evaluate conditional-request headers against the selected version's
+    ETag: failed ``If-Match`` -> 412, matched ``If-None-Match`` -> 304."""
+    if if_match is not None and not etag_matches(etag, if_match):
+        raise ApiError("PreconditionFailed", f'ETag "{etag}" does not match If-Match')
+    if if_none_match is not None and etag_matches(etag, if_none_match):
+        err = ApiError("NotModified", f'ETag "{etag}" matches If-None-Match')
+        err.etag = etag          # a 304 must carry the validator (RFC 7232)
+        raise err
+
+
+def encode_continuation_token(last_item: str) -> str:
+    return base64.urlsafe_b64encode(last_item.encode()).decode()
+
+
+def decode_continuation_token(token: str) -> str:
+    try:
+        return base64.urlsafe_b64decode(token.encode()).decode()
+    except (binascii.Error, UnicodeDecodeError) as e:
+        raise ApiError("InvalidArgument", f"bad continuation token: {e}") from None

@@ -433,3 +433,29 @@ def make_workload(name: str, regions: Sequence[str], seed: int = 0,
         params.update(WORKLOAD_TIERS[tier].get(name, {}))
     params.update(kw)
     return WORKLOADS[name](regions, seed=seed, **params)
+
+
+def random_outage_schedule(
+    regions: Sequence[str],
+    duration: float,
+    seed: int = 0,
+    max_windows: int = 4,
+    max_frac: float = 0.3,
+) -> OutageSchedule:
+    """A fuzzing schedule: up to ``max_windows`` random windows (each up to
+    ``max_frac`` of the trace) across random regions, thinned until no
+    instant has every region down (the differential-replay invariant)."""
+    rng = _rng("outage/random", seed)
+    windows = []
+    for _ in range(int(rng.integers(0, max_windows + 1))):
+        r = regions[int(rng.integers(0, len(regions)))]
+        start = rng.random() * duration
+        windows.append(OutageWindow(r, float(start),
+                                    float(start + rng.random() * max_frac
+                                          * duration)))
+    while windows:
+        sched = OutageSchedule(windows)
+        if sched.max_concurrent_down(regions) < len(regions):
+            return sched
+        windows.pop(int(rng.integers(0, len(windows))))
+    return OutageSchedule([])
