@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs seven
+(one nvcc per source for sm_90a, all started together), then runs eight
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -64,7 +64,27 @@ first that fails:
              launches = layers x prefills, splitkv launches = layers x decode
              steps, simt none), the tier's stored caches unchanged by
              decoding, a bf16 check and an f32 gate at full width: logits
-             through the kernels against logits through the plain attention.
+             through the kernels against logits through the plain attention;
+  train      the training path: ``python -m repro_torch.launch.train`` and
+             ``python -m repro_torch.launch.serve`` with their default
+             (reduced) arguments exit 0 on the card, and the serve default
+             run in this process sends every attention call to ``simt``
+             (head dim 8 padded to 64); llama3.2-1b at full width in bf16
+             (AdamW, f32 master) trains 8 steps of 4 x 1024 tokens on
+             batches read through a ``VirtualStore`` on the card (the last
+             batch repeated: the loss must fall), with step ms, tokens/s,
+             the model-FLOPs share and peak memory; the eval step goes
+             through ``wgmma`` (one launch a layer) and its bf16 loss is no
+             further from the f32 plain loss than 1.5x the plain bf16 loss's
+             distance (or 1e-3 of it); attention that needs a gradient
+             raises on the card; the checkpoint is saved in the train
+             region, recovered into a third, the first region killed, and
+             recovered again bit-equal, then one more finite step, with
+             TTL-scan launches equal to the store controller's refreshes
+             (>= 1); and the config cut to 2 layers trains 2 f32 steps on
+             the card and on the CPU from the same params and batch: losses
+             within 1e-4 relative, each param leaf within 1e-3 of its
+             largest |value| (the gradients' agreement recorded).
 
 Then it prints the per-kernel summary line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -1507,12 +1527,6 @@ BF16_MAX_FACTOR = 1.5
 BF16_MEAN_FACTOR = 1.25
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def phase_serve(dev) -> dict:
     import dataclasses
 
@@ -1522,6 +1536,7 @@ def phase_serve(dev) -> dict:
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import forward, layers
     from repro_torch.serve import prefill
+    from repro_torch.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     args = launch_serve.build_parser().parse_args(SERVE_ARGS)
@@ -1624,7 +1639,7 @@ def phase_serve(dev) -> dict:
     # (bf16 -> f32 is exact).
     cfg32 = dataclasses.replace(cfg, act_dtype="float32",
                                 param_dtype="float32")
-    p32 = _tree_map(lambda t: t.float(), params)
+    p32 = tree_map(lambda t: t.float(), params)
     del params, res
     torch.cuda.empty_cache()
     fa.reset_launches()
@@ -1705,6 +1720,378 @@ def phase_serve(dev) -> dict:
     return {"routes": route_launches, "simt_gate": simt_launches,
             "ttl_launches": ttl_launches}
 
+
+# -- the training path ---------------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 8, 1e-3
+#: The store's corpus and virtual clock: 32 shards of 256 tokens, the clock
+#: advanced 6 h a batch drawn, so the train region's shard reads pass the
+#: controller's 32-sample warmup and its 24-h refresh period (a CPU
+#: rehearsal refreshed at the 5th and 9th batches).
+CORPUS_SHARDS, SHARD_TOKENS, STORE_STEP_S = 32, 256, 6 * 3600.0
+#: Card against CPU: the full-width config cut to 2 layers, f32, 2 steps of
+#: ``cfg.optimizer`` with its default schedule on one batch of 2 x 64 from
+#: the same params; the first step's gradients are recorded beside them.
+#: AdamW's update is ~lr x sign(g) wherever |g| >> eps, so an element whose
+#: gradient is at the two devices' rounding noise can take opposite
+#: updates: the default schedule's lr at step 1 (3e-6; 0 at step 0) keeps
+#: such a flip within 1e-3 of the smallest leaf's scale (the embedding's,
+#: ~0.013).
+PARITY_LAYERS, PARITY_BATCH, PARITY_SEQ, PARITY_STEPS = 2, 2, 64, 2
+PARITY_LOSS_REL, PARITY_PARAM_REL = 1e-4, 1e-3
+#: The eval step through the kernel in bf16 against the f32 plain loss: no
+#: further from it than 1.5x the plain bf16 loss is, or 1e-3 of it.
+EVAL_FACTOR, EVAL_FLOOR = 1.5, 1e-3
+LAUNCHERS = ("repro_torch.launch.train", "repro_torch.launch.serve")
+LAUNCHER_TIMEOUT_S = 300
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step, remat not counted: 6 N a token for the
+    N parameters (the tied lm head's product included) plus causal
+    attention's 6 L S d a token (Q K^T and P V over S/2 keys on average,
+    2 x 2 x S/2 x d forward, x3 with the backward; d = heads x head dim)."""
+    tokens = batch * seq
+    d_attn = cfg.n_heads * cfg.resolved_head_dim
+    return (6.0 * cfg.param_count() * tokens
+            + 6.0 * cfg.n_layers * seq * d_attn * tokens)
+
+
+def run_launcher(module: str) -> dict:
+    """``python -m module`` with its default arguments, in a child process
+    on the card."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=LAUNCHER_TIMEOUT_S)
+    return {"command": f"python -m {module}", "rc": out.returncode,
+            "wall_s": time.perf_counter() - t0,
+            "stdout_tail": out.stdout[-400:], "stderr_tail": out.stderr[-1500:]}
+
+
+def leaf_errors(got, want, normwise: bool = False) -> dict:
+    """Each leaf's max |got - want| over its largest |want| (``normwise``:
+    ||got - want|| over ||want||)."""
+    from repro_torch.tree import leaves_with_path
+
+    out = {}
+    for (path, a), (_p, b) in zip(leaves_with_path(got), leaves_with_path(want)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        if normwise:
+            err = (a - b).norm() / b.norm().clamp_min(1e-300)
+        else:
+            err = (a - b).abs().max() / b.abs().max().clamp_min(1e-300)
+        out["/".join(path)] = float(err)
+    return out
+
+
+def loss_grads(cfg, params, batch):
+    """The gradients of the loss at ``params`` (plain attention, as the
+    train step takes them), on the CPU."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import leaves, unflatten
+
+    leaf = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, _ = loss_fn(cfg, unflatten(params, leaf), batch, plain_attention=True)
+    return unflatten(params, [g.cpu() for g in torch.autograd.grad(loss, leaf)])
+
+
+def parity_run(cfg, params, batch, dev) -> tuple:
+    """On ``dev``: the gradients of the loss at ``params``, then
+    ``PARITY_STEPS`` train steps of ``cfg.optimizer`` with its defaults:
+    (grads, losses, params), on the CPU."""
+    from repro_torch.train import (init_train_state, make_optimizer,
+                                   make_train_step)
+    from repro_torch.tree import tree_map
+
+    params = tree_map(lambda t: t.to(dev, copy=True), params)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    grads = loss_grads(cfg, params, batch)
+    _, opt = make_optimizer(cfg.optimizer)
+    step = make_train_step(cfg, opt)
+    state = init_train_state(cfg, params, opt)
+    losses = []
+    for _ in range(PARITY_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    return grads, losses, tree_map(lambda t: t.cpu(), state.params)
+
+
+def phase_train(dev, smi: str) -> dict:
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import VirtualStore, make_backends, pick_regions
+    from repro_torch.distributed.fault_tolerance import (FleetController,
+                                                         kill_region)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ttl_scan
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import forward, init_params, loss_fn
+    from repro_torch.train import (CheckpointManager, SkyStoreShardSource,
+                                   init_train_state, make_eval_step,
+                                   make_optimizer, make_train_step)
+    from repro_torch.tree import leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gates, walls = {}, {}
+
+    # 1. The launchers' default commands on the card (fault h: the reduced
+    # configs' head dim 8 runs padded on simt), then the serve default in
+    # this process, its route counts from 0.
+    t0 = time.perf_counter()
+    launchers = {m: run_launcher(m) for m in LAUNCHERS}
+    gates["launchers_exit_0"] = all(r["rc"] == 0 for r in launchers.values())
+    fa.reset_launches()
+    res = launch_serve.run(launch_serve.build_parser().parse_args([]))
+    torch.cuda.synchronize()
+    serve_routes = dict(fa.flash_attention_bshd.route_launches)
+    rcfg = res["cfg"]
+    serve_simt = rcfg.n_layers * (res["hit"].count(False)
+                                  + sum(res["decode_steps"]))
+    gates["launcher_serve_on_simt"] = (
+        serve_routes == {"wgmma": 0, "splitkv": 0, "simt": serve_simt}
+        and serve_simt > 0)
+    launcher_serve = {"head_dim": rcfg.resolved_head_dim,
+                      "dtype": rcfg.act_dtype, "route_launches": serve_routes,
+                      "simt_expected": serve_simt}
+    del res
+    walls["launchers_s"] = time.perf_counter() - t0
+
+    # 2. Full width, bf16, cfg.optimizer (AdamW with an f32 master), on
+    # batches read through the store in the train region; the last batch
+    # repeated, so the loss must fall.  TTL-scan launches from 0 for the
+    # store's whole use.
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    clock = VirtualClock()
+    cat = pick_regions(3)
+    base, west, euro = cat.region_names()
+    backends = make_backends(list(cat.region_names()), "memory")
+    ttl_scan.ttl_cost_surface.launches = 0
+    store = VirtualStore(cat, backends, mode="FB", clock=clock, device=dev)
+    SkyStoreShardSource.write_corpus(store, "corpus", base,
+                                     n_shards=CORPUS_SHARDS,
+                                     tokens_per_shard=SHARD_TOKENS,
+                                     vocab=cfg.vocab, seed=0)
+    source = SkyStoreShardSource(store, "corpus", west, TRAIN_BATCH, TRAIN_SEQ)
+    batches_read = 0
+
+    def next_batch():
+        nonlocal batches_read
+        clock.t += STORE_STEP_S
+        batches_read += 1
+        return {k: torch.from_numpy(v).to(dev) for k, v in next(source).items()}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    _, opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR, warmup_steps=1)
+    step_fn = make_train_step(cfg, opt)
+    state = init_train_state(cfg, params, opt)
+    del params
+    losses, step_s, issue_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        if i < TRAIN_STEPS - 1:
+            batch = next_batch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        issue_s.append(time.perf_counter() - t1)     # the host's part
+        losses.append(float(m["loss"]))              # waits for the card
+        step_s.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # Where a step's device time goes: one more step on the last batch,
+    # traced, its result dropped.
+    prof = device_profile(lambda: step_fn(state, batch))
+    if "ops" in prof:
+        prof["ops"] = dict(sorted(prof["ops"].items(),
+                                  key=lambda kv: -kv[1]["count"]
+                                  * kv[1]["mean_us"])[:15])
+    host = host_profile(lambda: step_fn(state, batch), top=15)
+    median_s = statistics.median(step_s[1:])
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    gates["losses_finite"] = all(math.isfinite(x) for x in losses)
+    gates["loss_falls"] = losses[-1] < losses[0]
+    full_width = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab,
+        "params": cfg.param_count(), "dtype": cfg.param_dtype,
+        "optimizer": cfg.optimizer, "master": "master" in state.opt_state,
+        "lr": TRAIN_LR, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "losses": losses, "step_s": step_s,
+        "step_ms_median_2_8": 1e3 * median_s,
+        "host_issue_ms_median_2_8": 1e3 * statistics.median(issue_s[1:]),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median_s,
+        "model_flops_per_step": flops,
+        "flops_note": "6 N T + 6 L S d T (N all parameters, tied head "
+                      "included; causal attention; remat not counted)",
+        "mfu_of_989e12": flops / median_s / BF16_OPS_PER_S,
+        "peak_memory_bytes": peak, "attention": "plain (the reference's "
+                                                "train path; no kernel)",
+        "traced_step": prof, "host_profile_step": host}
+    walls["full_width_train_s"] = time.perf_counter() - t0
+
+    # 5. The eval step through the kernel (wgmma), its route counts from 0,
+    # against the same eval in f32 with plain attention.
+    t0 = time.perf_counter()
+    params = state.params
+    eval_batch = next_batch()
+    fa.reset_launches()
+    l_kernel = float(make_eval_step(cfg)(params, eval_batch)["loss"])
+    torch.cuda.synchronize()
+    eval_routes = dict(fa.flash_attention_bshd.route_launches)
+    with torch.no_grad():
+        l_plain = float(loss_fn(cfg, params, eval_batch,
+                                plain_attention=True)[0])
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    act_dtype="float32")
+        l_f32 = float(loss_fn(cfg32, tree_map(lambda t: t.float(), params),
+                              eval_batch, plain_attention=True)[0])
+    torch.cuda.empty_cache()
+    eval_limit = max(EVAL_FACTOR * abs(l_plain - l_f32), EVAL_FLOOR * l_f32)
+    gates["eval_on_wgmma"] = eval_routes == {"wgmma": cfg.n_layers,
+                                             "splitkv": 0, "simt": 0}
+    gates["eval_kernel_vs_f32"] = (math.isfinite(l_kernel)
+                                   and abs(l_kernel - l_f32) <= eval_limit)
+    evaluation = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                  "route_launches": eval_routes, "loss_kernel_bf16": l_kernel,
+                  "loss_plain_bf16": l_plain, "loss_plain_f32": l_f32,
+                  "kernel_vs_f32": abs(l_kernel - l_f32),
+                  "plain_vs_f32": abs(l_plain - l_f32), "limit": eval_limit}
+
+    # 4. The control for fault (i): attention that needs a gradient raises
+    # on the card rather than go through the forward-only kernel.
+    grad_params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    try:
+        forward(cfg, grad_params, eval_batch["inputs"][:1, :128], mode="train")
+        control = "no exception"
+    except NotImplementedError as exc:
+        control = str(exc)
+    del grad_params
+    gates["grad_attention_raises"] = "no backward" in control
+    walls["eval_and_control_s"] = time.perf_counter() - t0
+
+    # 6. The store leg: the trainer half of test_system's failover on these
+    # params -- save in the train region, recover into a third, kill the
+    # first, recover again bit-equal, one more step.
+    t0 = time.perf_counter()
+    saved = tree_map(lambda t: t.detach().cpu(), params)
+    ckpt = CheckpointManager(store, "ckpt", west, name=cfg.name)
+    ckpt.save(TRAIN_STEPS, params)
+    del state, params
+    torch.cuda.empty_cache()
+    fleet = FleetController(ckpt, clock=clock)
+    fleet.recover(like=saved, into_region=euro)
+    egress_after_first_recover = store.transfers.dollars
+    killed = kill_region(backends, west)
+    step_no, restored = fleet.recover(like=saved, into_region=euro)
+    bit_equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(leaves(restored), leaves(saved)))
+    state = init_train_state(cfg, tree_map(lambda t: t.to(dev), restored), opt)
+    del restored, saved
+    state, m = step_fn(state, next_batch())
+    resumed_loss = float(m["loss"])
+    del state, m
+    torch.cuda.empty_cache()
+    refreshes = store.meta.ctl.n_refreshes
+    ttl_launches = ttl_scan.ttl_cost_surface.launches
+    gates["store_recovered_bit_equal"] = (bit_equal and step_no == TRAIN_STEPS
+                                          and killed > 0)
+    gates["resumed_step_finite"] = math.isfinite(resumed_loss)
+    gates["ttl_launches_equal_refreshes"] = (ttl_launches == refreshes >= 1
+                                             and store.meta.ctl.device.type
+                                             == "cuda")
+    store_leg = {"regions": [base, west, euro], "corpus_shards": CORPUS_SHARDS,
+                 "shard_tokens": SHARD_TOKENS, "clock_step_s": STORE_STEP_S,
+                 "batches_read": batches_read, "virtual_clock_s": clock.t,
+                 "checkpoint_bytes": sum(
+                     store.head_object("ckpt", k).size
+                     for k in store.list_objects("ckpt")),
+                 "objects_killed": killed, "recovered_step": step_no,
+                 "bit_equal": bit_equal, "resumed_loss": resumed_loss,
+                 "egress_dollars": store.transfers.dollars,
+                 "egress_dollars_after_first_recover":
+                     egress_after_first_recover,
+                 "refreshes": refreshes, "ttl_scan_launches": ttl_launches}
+    walls["store_leg_s"] = time.perf_counter() - t0
+
+    # 3. Card against CPU in f32: the full-width config cut to 2 layers,
+    # the same params and batch, the port's plain paths on the CPU.
+    t0 = time.perf_counter()
+    pcfg = dataclasses.replace(cfg, n_layers=PARITY_LAYERS,
+                               param_dtype="float32", act_dtype="float32")
+    p0 = init_params(torch.Generator().manual_seed(1), pcfg, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (PARITY_BATCH, PARITY_SEQ + 1),
+                        dtype=np.int32)
+    pbatch = {"inputs": torch.from_numpy(toks[:, :-1]),
+              "labels": torch.from_numpy(toks[:, 1:])}
+    grad_gpu, loss_gpu, params_gpu = parity_run(pcfg, p0, pbatch, dev)
+    torch.cuda.empty_cache()
+    grad_cpu, loss_cpu, params_cpu = parity_run(pcfg, p0, pbatch,
+                                                torch.device("cpu"))
+    grad_err = leaf_errors(grad_gpu, grad_cpu)
+    grad_norm_err = leaf_errors(grad_gpu, grad_cpu, normwise=True)
+    # The f32 rounding spread of these gradients on one device: the batch's
+    # gradients against the mean of its two halves' (the same sum in
+    # another order), on the card.
+    halves = [loss_grads(pcfg, tree_map(lambda t: t.to(dev), p0),
+                         {k: v[i:i + 1].to(dev) for k, v in pbatch.items()})
+              for i in range(PARITY_BATCH)]
+    grad_halves_err = leaf_errors(
+        tree_map(lambda *g: sum(g) / len(g), *halves), grad_gpu, normwise=True)
+    del halves
+    param_err = leaf_errors(params_gpu, params_cpu)
+    update_err = leaf_errors(
+        tree_map(lambda a, b: a - b, params_gpu, p0),
+        tree_map(lambda a, b: a - b, params_cpu, p0))
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(loss_gpu, loss_cpu)]
+    gates["card_vs_cpu"] = (max(loss_rel) <= PARITY_LOSS_REL
+                            and max(param_err.values()) <= PARITY_PARAM_REL)
+    parity = {"layers": PARITY_LAYERS, "batch": PARITY_BATCH,
+              "seq": PARITY_SEQ, "steps": PARITY_STEPS,
+              "optimizer": f"{cfg.optimizer}, defaults (lr 3e-4, warmup "
+                           "100: 0 at step 0, 3e-6 at step 1)",
+              "loss_card": loss_gpu, "loss_cpu": loss_cpu,
+              "loss_rel_err": loss_rel, "loss_limit": PARITY_LOSS_REL,
+              "grad_err_max (recorded)": max(grad_err.values()),
+              "grad_err": grad_err,
+              "grad_normwise_err_max (recorded)": max(grad_norm_err.values()),
+              "grad_normwise_err": grad_norm_err,
+              "grad_card_halves_vs_whole_normwise_max (recorded)":
+                  max(grad_halves_err.values()),
+              "grad_card_halves_vs_whole_normwise": grad_halves_err,
+              "param_err_max": max(param_err.values()),
+              "param_limit": PARITY_PARAM_REL, "param_err": param_err,
+              "update_err_max (recorded)": max(update_err.values()),
+              "update_err": update_err}
+    del p0, params_gpu, params_cpu, grad_gpu, grad_cpu
+    walls["parity_s"] = time.perf_counter() - t0
+
+    ok = all(gates.values())
+    emit("train", ok=ok, nvidia_smi=smi, gates=gates, walls=walls,
+         launchers=launchers, launcher_serve=launcher_serve,
+         full_width=full_width, eval=evaluation, grad_control=control[:200],
+         store=store_leg, parity=parity)
+    if not ok:
+        raise SystemExit("training path check failed: "
+                         + ", ".join(k for k, v in gates.items() if not v))
+    return {"wgmma_eval": eval_routes["wgmma"],
+            "simt_launcher_serve": serve_routes["simt"],
+            "ttl_launches": ttl_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1744,6 +2131,7 @@ def main() -> int:
     live = phase_live(dev)
     flash = phase_flash(dev)
     serve = phase_serve(dev)
+    train = phase_train(dev, smi)
 
     main_t, scale_t = kern["timings"]
     t = flash["timings"]
@@ -1762,10 +2150,12 @@ def main() -> int:
         "name": "ttl_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ttl_scan.cu",
         "replaces": "src/repro/kernels/ttl_scan.py:56",
-        "launches": launches + live["launches"] + live["proxy_launches"],
+        "launches": (launches + live["launches"] + live["proxy_launches"]
+                     + train["ttl_launches"]),
         "launches_by_path": {"replay": launches,
                              "live_differential": live["launches"],
-                             "live_proxy": live["proxy_launches"]},
+                             "live_proxy": live["proxy_launches"],
+                             "train_store": train["ttl_launches"]},
         "max_abs_err": kern["max_abs_err"],
         **{k: main_t["decision"][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "device_us")},
@@ -1781,16 +2171,24 @@ def main() -> int:
         "serve_launches": serve["ttl_launches"],
     },
         flash_entry("flash_attention_wgmma", "wgmma", t["wgmma_prefill"],
-                    serve["routes"]["wgmma"]),
+                    serve["routes"]["wgmma"] + train["wgmma_eval"],
+                    launches_by_path={"serve": serve["routes"]["wgmma"],
+                                      "train_eval": train["wgmma_eval"]}),
         flash_entry("flash_attention_splitkv", "splitkv", t["splitkv_decode"],
                     serve["routes"]["splitkv"],
                     decode_8k={k: t["splitkv_decode_8k"][k] for k in
                                ("case", "ms", "device_us", "bound_ms",
                                 "library_ms")}),
         flash_entry("flash_attention", "simt", t["simt_f32"],
-                    serve["simt_gate"],
-                    launches_note="the f32 gate's forward; the bf16 serve "
-                                  "run sends it none",
+                    serve["simt_gate"] + train["simt_launcher_serve"],
+                    launches_by_path={
+                        "serve_f32_gate": serve["simt_gate"],
+                        "launcher_serve_defaults":
+                            train["simt_launcher_serve"]},
+                    launches_note="the f32 gate's forward and the serve "
+                                  "launcher's reduced defaults (head dim 8 "
+                                  "padded to 64); the bf16 serve run sends "
+                                  "it none",
                     bf16_serving_shapes={k: {f: t[k][f] for f in ("ms", "device_us")}
                                  for k in ("simt_prefill_bf16",
                                            "simt_decode_bf16")}),

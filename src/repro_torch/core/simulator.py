@@ -56,7 +56,7 @@ from .engine import (
 from .expiry import ExpiryIndex
 from .ledger import CostReport
 from .oracle import TraceOracle
-from .policies import GetContext, Policy
+from .policies import GetContext, Oracle, Policy
 from .routing import (
     ROUTE_OK, ROUTE_UNAVAILABLE, VEC_ROUTE_MIN, RouteHints, RoutingMatrix,
     resolve_routing_engine,
@@ -772,3 +772,13 @@ def run_policy(trace, cost: CostModel, policy_name: str, mode: str = "FB",
     policy = make_policy(policy_name, cost, device=device, **policy_kw)
     sim = Simulator(cost, policy, mode=mode, track_latency=track_latency)
     return sim.run(trace)
+
+
+# ---------------------------------------------------------------------------
+# Oracle construction (moved to repro_torch.core.oracle; wrapper kept for callers)
+# ---------------------------------------------------------------------------
+
+def build_oracle(trace) -> Oracle:
+    """DEPRECATED: use :meth:`repro_torch.core.oracle.TraceOracle.from_trace`,
+    which also carries per-GET sizes and optional epoch summaries."""
+    return TraceOracle.from_trace(trace)

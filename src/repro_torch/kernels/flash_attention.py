@@ -87,10 +87,12 @@ LIBRARIES = {
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def plain(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
+def plain(q, k, v, causal: bool, q_offset: int = 0,
+          scale: float | None = None) -> torch.Tensor:
     """The kernels' function in plain PyTorch, in their layout:
     ``[B, Sq, Hq, D]`` against ``[B, Skv, Hkv, D]``, KV heads repeated to
-    the query heads (head ``h`` reads KV head ``h // group``)."""
+    the query heads (head ``h`` reads KV head ``h // group``).  ``scale``
+    multiplies the logits (default ``D**-0.5``)."""
     group = q.shape[2] // k.shape[2]
 
     def bhsd(x):
@@ -98,7 +100,7 @@ def plain(q, k, v, causal: bool, q_offset: int = 0) -> torch.Tensor:
 
     out = ref.mha_ref(bhsd(q), bhsd(k.repeat_interleave(group, dim=2)),
                       bhsd(v.repeat_interleave(group, dim=2)),
-                      causal=causal, q_offset=q_offset)
+                      causal=causal, scale=scale, q_offset=q_offset)
     return bhsd(out)
 
 
@@ -127,7 +129,7 @@ def split_ranges(n_live: int, splits: int) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _scale(d: int) -> float:
+def softmax_scale(d: int) -> float:
     """d**-0.5 in float32, as the TPU wrapper forms it."""
     return float(torch.tensor(d, dtype=torch.float32) ** -0.5)
 
@@ -140,7 +142,7 @@ def plain_split_kv(q, k, v, causal: bool, q_offset: int,
     Same layout and result as :func:`plain`."""
     b, sq, hq, d = q.shape
     group = hq // k.shape[2]
-    qs = (q.float() * _scale(d)).to(q.dtype).float()
+    qs = (q.float() * softmax_scale(d)).to(q.dtype).float()
     kf = k.float().repeat_interleave(group, dim=2)
     vf = v.float().repeat_interleave(group, dim=2)
     n_live = live_keys(sq, k.shape[1], causal, q_offset)
@@ -279,31 +281,34 @@ def _check_alignment(route: str, tensors: dict) -> None:
 # The entry point
 # ---------------------------------------------------------------------------
 
-def flash_attention_bshd(q, k, v, causal: bool = True,
-                         q_offset: int = 0) -> torch.Tensor:
+def flash_attention_bshd(q, k, v, causal: bool = True, q_offset: int = 0,
+                         scale: float | None = None) -> torch.Tensor:
     """Softmax attention, ``[B, Sq, Hq, D]`` queries against
     ``[B, Skv, Hkv, D]`` keys and values -> ``[B, Sq, Hq, D]`` in q's dtype.
 
     ``q_offset`` places query row ``i`` at position ``q_offset + i`` of the
     KV timeline for the causal mask (0 for prefill, the cache position for
-    decode).  CPU tensors: :func:`plain`.  CUDA tensors: the route and
-    splits of :func:`plan`, launched by :func:`_launch`.
+    decode).  ``scale`` multiplies the logits (default ``D**-0.5``; a
+    caller that zero-pads ``D`` passes the true one's).  CPU tensors:
+    :func:`plain`.  CUDA tensors: the route and splits of :func:`plan`,
+    launched by :func:`_launch`.
     """
     if q.device.type == "cpu":
-        return plain(q, k, v, causal, q_offset)
+        return plain(q, k, v, causal, q_offset, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
     _check(q, k, v)
     route, splits = plan(q, k, causal, q_offset,
                          sms=_sm_count(q.device.index or 0))
-    return _launch(route, q, k, v, causal, q_offset, splits)
+    return _launch(route, q, k, v, causal, q_offset, splits, scale)
 
 
 def _launch(route: str, q, k, v, causal: bool, q_offset: int,
-            splits: int) -> torch.Tensor:
+            splits: int, scale: float | None = None) -> torch.Tensor:
     """Launch ``route`` on CUDA tensors that :func:`_check` passed, on the
     current stream without synchronisation; ``splits`` is the ``splitkv``
-    route's (the others ignore it).  Raises unless the route takes the
+    route's (the others ignore it), ``scale`` the logits' factor (default
+    :func:`softmax_scale` of ``D``).  Raises unless the route takes the
     inputs.  Counts the launch in ``flash_attention_bshd.launches`` and
     ``flash_attention_bshd.route_launches[route]``.  The entry point calls
     it with :func:`plan`'s choice; the card tests and the timing script
@@ -319,7 +324,7 @@ def _launch(route: str, q, k, v, causal: bool, q_offset: int,
     lib = LIBRARIES[route].load()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    scale = _scale(d)
+    scale = softmax_scale(d) if scale is None else float(scale)
     n_live = live_keys(sq, skv, causal, q_offset)
     with _on(q.device):
         stream = torch.cuda.current_stream().cuda_stream

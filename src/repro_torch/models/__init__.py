@@ -4,9 +4,11 @@ encoder-only stacks.  MLA, MoE, Mamba and RWKV6 wait for a later slice."""
 
 from .transformer import (  # noqa: F401
     cache_schema,
+    cross_entropy,
     forward,
     init_cache,
     init_params,
+    loss_fn,
     model_schema,
     params_from_reference,
 )

@@ -13,11 +13,13 @@ Numerical contract (the reference's): parameters and activations in
 
 Attention.  On a CUDA device :func:`apply_attn` sends every attention call
 within the flash kernel's contract (no window, no logit softcap, ``Dk == Dv``
-in :data:`repro_torch.kernels.flash_attention.HEAD_DIMS`, decode one token at
-a time) through the kernel, and raises for any other call: there is no silent
-plain path on the card.  ``plain_attention=True`` asks for the plain
-:func:`_sdpa` on purpose, to hold the kernel path against it.  On the CPU
-attention is :func:`_sdpa`, as in the reference.
+of at most the largest of :data:`repro_torch.kernels.flash_attention.HEAD_DIMS`,
+smaller ones zero-padded up, decode one token at a time, no gradient needed)
+through the kernel, and raises for any other call: there is no silent plain
+path on the card.  ``plain_attention=True`` asks for the plain :func:`_sdpa`
+on purpose: to hold the kernel path against it, and in training, which is
+differentiable only there (the reference trains through ``_sdpa`` too).  On
+the CPU attention is :func:`_sdpa`, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import HEAD_DIMS, flash_attention_bshd
+from ..kernels.flash_attention import (HEAD_DIMS, flash_attention_bshd,
+                                       softmax_scale)
 
 F32 = torch.float32
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -213,16 +216,40 @@ def _sdpa(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
 
 def _flash(q, k, v, *, causal: bool, q_offset: int, window, softcap: float):
-    """The flash kernel for a call within its contract; raise otherwise."""
+    """The flash kernel for a call within its contract; raise otherwise.
+
+    The kernels have no backward (nor has the Pallas kernel they replace),
+    and their output has no ``grad_fn``: a call that would need one raises
+    rather than return a result gradients silently skip.  Training takes
+    the plain attention, as the reference's ``loss_fn`` does.
+
+    A head dim below a compiled one (the reduced configs' 8) is zero-padded
+    up to the smallest entry of :data:`HEAD_DIMS` that holds it: zero
+    columns leave ``Q K^T`` and ``P V`` unchanged, and the softmax scale
+    stays the true ``D``'s.  In decode that pads a copy of the whole cache
+    every step, which is acceptable for the reduced configs only.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash kernel has no backward: attention that needs a "
+            "gradient takes the plain path (plain_attention=True, as the "
+            "train step passes), or run under torch.no_grad()")
     if window is not None or softcap > 0:
         raise NotImplementedError(
             "the flash kernel takes no sliding window and no logit softcap "
             f"yet ({KERNEL_TODO}); use device='cpu' for such models")
-    if q.shape[-1] != v.shape[-1] or q.shape[-1] not in HEAD_DIMS:
+    d = q.shape[-1]
+    if d != v.shape[-1] or d > HEAD_DIMS[-1]:
         raise NotImplementedError(
-            f"the flash kernel takes Dk == Dv in {HEAD_DIMS}, not "
-            f"Dk={q.shape[-1]}, Dv={v.shape[-1]} ({KERNEL_TODO})")
-    return flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset)
+            f"the flash kernel takes Dk == Dv of at most {HEAD_DIMS[-1]}, not "
+            f"Dk={d}, Dv={v.shape[-1]} ({KERNEL_TODO})")
+    padded = min(x for x in HEAD_DIMS if x >= d)
+    if padded == d:
+        return flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset)
+    q, k, v = (F.pad(t, (0, padded - d)) for t in (q, k, v))
+    out = flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset,
+                               scale=softmax_scale(d))
+    return out[..., :d]
 
 
 def apply_attn(

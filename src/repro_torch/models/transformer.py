@@ -5,11 +5,17 @@ repeated ``R`` times over stacked per-repeat parameters (leading layer axis),
 with irregular leading layers in an unstacked ``prefix``.  The reference's
 ``lax.scan`` over the stack becomes a Python loop over the layer axis.
 
-Two lowering modes of the reference's three are here (training waits for
-ROADMAP.md Queue 1 item 11, with ``loss_fn``):
-  train / prefill -- full sequence; prefill also returns the decode cache;
-  decode          -- one token against the cache, written in place at
-                     ``pos`` (see :func:`repro_torch.models.layers.apply_attn`).
+The reference's three lowering modes share the code path:
+  train   -- full sequence, loss-ready logits; under grad each block is
+             recomputed in the backward (``torch.utils.checkpoint``, the
+             reference's ``jax.checkpoint`` around each block; its
+             ``remat_policy="dots"``, which saves the products, is
+             recomputed in full here);
+  prefill -- full sequence, returns the decode cache;
+  decode  -- one token against the cache, written in place at ``pos``
+             (see :func:`repro_torch.models.layers.apply_attn`).
+
+:func:`loss_fn` is the reference's chunked fused lm-head + cross-entropy.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 
@@ -188,6 +195,8 @@ def forward(
     Decode writes into ``caches`` in place and returns the same tree;
     prefill returns new, stacked caches.  ``plain_attention`` takes the
     plain attention on the card too (see :mod:`repro_torch.models.layers`).
+    Train mode under grad saves only each block's input and recomputes the
+    block in the backward.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -202,6 +211,13 @@ def forward(
     def block(spec, p, x, cache):
         return _apply_block(cfg, spec, p, x, positions, mode, cache, pos,
                             plain_attention)
+
+    if mode == "train" and torch.is_grad_enabled():
+        plain_block = block
+
+        def block(spec, p, x, cache):
+            return checkpoint(plain_block, spec, p, x, cache,
+                              use_reentrant=False)
 
     new_caches: Dict[str, Any] = {"prefix": {}, "blocks": {}}
     for i, spec in enumerate(cfg.prefix):
@@ -245,3 +261,53 @@ def _lm_head(cfg, params, x):
         logits = (torch.tanh(logits.float() / cfg.logit_softcap)
                   * cfg.logit_softcap).to(logits.dtype)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL in fp32 (stable logsumexp)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - gold).mean()
+
+
+#: sequence-chunk size for the fused head+CE loss; [B, chunk, vocab] is the
+#: largest loss-side tensor ever materialized.
+_LOSS_CHUNK = 512
+
+
+def loss_fn(cfg, params, batch,
+            plain_attention: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Chunked fused lm-head + cross-entropy: the [B, S, vocab] logits are
+    never materialized when S is a multiple of :data:`_LOSS_CHUNK` above
+    it -- each sequence chunk computes its logits, its logsumexp and its
+    gold score, recomputed in the backward so it replays one chunk at a
+    time.  Chunks add in sequence order, as the reference's scan does.
+    ``plain_attention`` as in :func:`forward`; a train step passes True."""
+    hidden, _, aux = forward(cfg, params, batch["inputs"],
+                             positions=batch.get("positions"), mode="train",
+                             return_hidden=True,
+                             plain_attention=plain_attention)
+    labels = batch["labels"]
+    b, s, _ = hidden.shape
+
+    def chunk_nll(h_c, l_c):
+        logits = _lm_head(cfg, params, h_c).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, l_c[..., None].long())[..., 0]
+        return (lse - gold).sum()
+
+    if s % _LOSS_CHUNK == 0 and s > _LOSS_CHUNK:
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(0, s, _LOSS_CHUNK):
+            h_c, l_c = hidden[:, i:i + _LOSS_CHUNK], labels[:, i:i + _LOSS_CHUNK]
+            total = total + (checkpoint(chunk_nll, h_c, l_c, use_reentrant=False)
+                             if torch.is_grad_enabled() else chunk_nll(h_c, l_c))
+    else:
+        total = chunk_nll(hidden, labels)
+    ce = total / (b * s)
+    return ce + aux, {"ce": ce, "aux": aux}
