@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs eight
+(one nvcc per source for sm_90a, all started together), then runs nine
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -50,12 +50,15 @@ first that fails:
              the card (f32 2e-5, bf16 2e-2): the six CPU-test cases and the
              serving prefill and decode shapes on the planned route, then
              each bf16 route forced on its own cases (group 7 at D 128 in
-             prefill and decode, an 8,192-key decode); and each route's time
-             by CUDA events and by the profiler at its main-path shapes
-             (wgmma: serving prefill; splitkv: serving decode, warm and with
-             L2 flushed, and the 8,192-key decode; simt: the f32 gate's shape,
-             and the bf16 serving shapes for comparison) beside the plain
-             version's, the bound and scaled_dot_product_attention's;
+             prefill and decode, an 8,192-key decode, D 80 / 96 on the
+             padded wgmma tile, causal or not, hubert-xlarge's call at
+             S 1000); controls that leave keys out of each route; and each
+             route's time by CUDA events and by the profiler at its
+             main-path shapes (wgmma: serving prefill and hubert-xlarge's
+             call at S 1024 and 1000; splitkv: serving decode, warm and with
+             L2 flushed, and the 8,192-key decode; simt: the f32 gate's
+             shape) beside the plain version's, the bound and
+             scaled_dot_product_attention's;
   serve      the serving path: ``repro_torch.launch.serve`` at full width
              (llama3.2-1b, bf16, seeded random weights; 6 requests of batch
              4, 1024-token prompts, 32 generated tokens, three distinct
@@ -84,7 +87,19 @@ first that fails:
              (>= 1); and the config cut to 2 layers trains 2 f32 steps on
              the card and on the CPU from the same params and batch: losses
              within 1e-4 relative, each param leaf within 1e-3 of its
-             largest |value| (the gradients' agreement recorded).
+             largest |value| (the gradients' agreement recorded);
+  encode     hubert-xlarge's eval step at full width (48 layers, d 1280,
+             16 heads of 80, not causal, bf16, seeded random weights) on
+             B 4 x S 1024 frames from the frontend stub of
+             ``launch.train``: 48 wgmma launches a step and no simt, the
+             bf16 loss through the kernel no further from the f32 plain loss
+             than 1.5x the plain bf16 loss is (or 1e-3 of it), layer 0's
+             attention within 2^-5 of each row's largest value of the plain
+             version with q x scale rounded to bf16 as the TPU kernel rounds
+             it, and a control (the last 64 keys left out) caught; the
+             step's ms (median of 10 after 2), frames/s, model-FLOPs share
+             and peak memory, and a traced step's device time by kernel and
+             idle share.
 
 Then it prints the per-kernel summary line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -1219,9 +1234,16 @@ FLASH_DECODE = (4, 32, 8, 1, 1056, 64, True, 1040, "bfloat16")
 FLASH_DECODE_8K = (4, 32, 8, 1, 8192, 64, True, 8191, "bfloat16")
 #: The f32 gate's attention call (B 1, S 256): the simt route's main path.
 FLASH_F32 = (1, 32, 8, 256, 256, 64, True, 0, "float32")
+#: hubert-xlarge's attention call in the encode phase (B 4, H 16, S 1024,
+#: D 80, not causal), and the same at a length that is no multiple of 128.
+HUBERT_ATTN = (4, 16, 16, 1024, 1024, 80, False, 0, "bfloat16")
+HUBERT_ATTN_1000 = (4, 16, 16, 1000, 1000, 80, False, 0, "bfloat16")
+#: A large non-causal f32 call (B 2, H 16, S 1024, D 64): the simt
+#: kernel's rate once every SM has whole waves of work (timed only).
+SIMT_LARGE = (2, 16, 16, 1024, 1024, 64, False, 0, "float32")
 #: Each bf16 route forced on cases of its own: group 7 at D 128
 #: (qwen2-vl-7b 28/4, deepseek-coder-33b 56/8), a chunk at an offset,
-#: the 8,192-key decode, and bf16 on the simt route.
+#: the 8,192-key decode, and D 80 / 96 on the padded wgmma tile.
 FLASH_ROUTE_CASES = [
     ((2, 28, 4, 333, 333, 128, True, 0, "bfloat16"), "wgmma"),
     ((1, 56, 8, 200, 200, 128, True, 0, "bfloat16"), "wgmma"),
@@ -1229,9 +1251,10 @@ FLASH_ROUTE_CASES = [
     ((2, 28, 4, 1, 1056, 128, True, 1000, "bfloat16"), "splitkv"),
     (FLASH_DECODE_8K, "splitkv"),
     ((1, 8, 2, 16, 200, 64, True, 150, "bfloat16"), "splitkv"),
-    ((2, 2, 2, 200, 200, 80, True, 0, "bfloat16"), "simt"),
-    (FLASH_PREFILL, "simt"),
-    (FLASH_DECODE, "simt"),
+    ((2, 2, 2, 200, 200, 80, True, 0, "bfloat16"), "wgmma"),
+    ((1, 8, 4, 130, 257, 96, True, 0, "bfloat16"), "wgmma"),
+    ((1, 4, 2, 100, 356, 96, False, 0, "bfloat16"), "wgmma"),
+    (HUBERT_ATTN_1000, "wgmma"),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: A second limit on the bf16 routes, beside the reference's: each output
@@ -1404,6 +1427,10 @@ def flash_controls(dev) -> list:
          last_split(FLASH_DECODE_8K)[0]),
         ("wgmma", FLASH_PREFILL, "the last 64-key tile left out",
          FLASH_PREFILL[4] - 64),
+        ("wgmma", HUBERT_ATTN_1000, "the last 64 keys left out (D 80, "
+         "padded tile, not causal)", HUBERT_ATTN_1000[4] - 64),
+        ("simt", FLASH_F32, "the last 16-key tile left out (f32)",
+         FLASH_F32[4] - 16),
     ]
     out = []
     for route, case, defect, n_keys in todo:
@@ -1421,8 +1448,7 @@ def flash_controls(dev) -> list:
     return out
 
 
-def flash_timing(case, dev, route: str, n_per: int, cold: bool = False,
-                 library: bool = True) -> dict:
+def flash_timing(case, dev, route: str, n_per: int, cold: bool = False) -> dict:
     """A route's time on one case: CUDA events over back-to-back calls (warm
     L2), the profiler's device time, optionally with L2 flushed, beside the
     plain version's, SDPA's and the bound."""
@@ -1444,12 +1470,20 @@ def flash_timing(case, dev, route: str, n_per: int, cold: bool = False,
     row = {"case": list(case), "route": route, "ms": ms,
            "device_us": route_device_us(prof, route),
            "plain_ms": cuda_ms(lambda: fa.plain(qs, ks, vs, causal, off), 3),
-           "library_ms": (cuda_ms(sdpa_call(case, q, k, v), n_per)
-                          if library else None),
+           "library_ms": cuda_ms(sdpa_call(case, q, k, v), n_per),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "share_of_bound": bound_ms / ms}
     if row["device_us"]:
         row["device_share_of_bound"] = bound_ms / (1e-3 * row["device_us"])
+    else:
+        row["device_not_measured"] = prof.get(
+            "not_measured", f"no kernel of the {route} route in the profile")
+    width = 64 * -(-case[5] // 64)     # whole 64-column swizzle atoms
+    if route == "wgmma" and width != case[5]:
+        # The padded tile's products: scores at the true depth, P . V at
+        # the padded width; the bound counts the true D's only.
+        row["padded_width"] = width
+        row["padded_work_factor"] = (case[5] + width) / (2 * case[5])
     if cold:
         row["cold_ms"] = cuda_ms_cold(call)
         row["library_cold_ms"] = cuda_ms_cold(sdpa_call(case, q, k, v))
@@ -1466,8 +1500,9 @@ def phase_flash(dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
 
     checks = []
-    todo = ([(c, None) for c in FLASH_CASES + [FLASH_PREFILL, FLASH_DECODE]]
-            + FLASH_ROUTE_CASES)
+    planned = FLASH_CASES + [FLASH_PREFILL, FLASH_DECODE, FLASH_F32,
+                             HUBERT_ATTN]
+    todo = [(c, None) for c in planned] + FLASH_ROUTE_CASES
     for case, route in todo:
         checks.append(flash_check(case, dev, route))
         if not checks[-1]["ok"]:
@@ -1489,12 +1524,10 @@ def phase_flash(dev) -> dict:
                                        cold=True),
         "splitkv_decode_8k": flash_timing(FLASH_DECODE_8K, dev, "splitkv",
                                           100, cold=True),
+        "wgmma_hubert": flash_timing(HUBERT_ATTN, dev, "wgmma", 20),
+        "wgmma_hubert_1000": flash_timing(HUBERT_ATTN_1000, dev, "wgmma", 20),
         "simt_f32": flash_timing(FLASH_F32, dev, "simt", 50),
-        # The CUDA-core kernel at the bf16 serving shapes, in the same run.
-        "simt_prefill_bf16": flash_timing(FLASH_PREFILL, dev, "simt", 20,
-                                          library=False),
-        "simt_decode_bf16": flash_timing(FLASH_DECODE, dev, "simt", 200,
-                                         cold=True, library=False),
+        "simt_f32_large": flash_timing(SIMT_LARGE, dev, "simt", 10),
     }
     emit("flash", ok=True, routes=list(fa.ROUTES), tol=FLASH_TOL,
          tight=BF16_TIGHT, checks=checks, controls=controls, timings=timings,
@@ -2092,6 +2125,174 @@ def phase_train(dev, smi: str) -> dict:
             "ttl_launches": ttl_launches}
 
 
+# -- the encoder path ----------------------------------------------------------
+
+ENCODE_ARCH = "hubert-xlarge"
+#: 4 rows of 1024 frames: ~20 s of audio a row at HuBERT's 50 frames/s.
+ENCODE_BATCH, ENCODE_SEQ, ENCODE_WARMUP, ENCODE_STEPS = 4, 1024, 2, 10
+
+
+def encode_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one eval step (forward only): 2 N a frame for the N
+    parameters plus non-causal attention's 4 L S d a frame (Q K^T and P V
+    over all S keys; d = heads x head dim)."""
+    frames = batch * seq
+    d_attn = cfg.n_heads * cfg.resolved_head_dim
+    return (2.0 * cfg.param_count() * frames
+            + 4.0 * cfg.n_layers * seq * d_attn * frames)
+
+
+def phase_encode(dev, smi: str) -> dict:
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import frontend_frames
+    from repro_torch.models import init_params, layers, loss_fn
+    from repro_torch.train import make_eval_step
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gates = {}
+    cfg = get_config(ENCODE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab, (ENCODE_BATCH, ENCODE_SEQ + 1)).astype(np.int32)
+    batch = {"inputs": torch.from_numpy(
+                 frontend_frames(cfg, toks[:, :-1])).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+    step = make_eval_step(cfg)
+
+    # The main path: one eval step, its route counts from 0.
+    fa.reset_launches()
+    l_kernel = float(step(params, batch)["loss"])
+    routes = dict(fa.flash_attention_bshd.route_launches)
+    gates["one_wgmma_launch_a_layer"] = routes == {
+        "wgmma": cfg.n_layers, "splitkv": 0, "simt": 0}
+
+    for _ in range(ENCODE_WARMUP):
+        step(params, batch)["loss"].item()
+    step_s = []
+    for _ in range(ENCODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, batch)["loss"].item()
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    median_s = statistics.median(step_s)
+    prof = device_profile(lambda: step(params, batch)["loss"].item())
+    attention_us = None
+    if "ops" in prof:
+        attention_us = sum(o["count"] * o["mean_us"] for key, o in
+                           prof["ops"].items()
+                           if "flash_prefill_kernel" in key)
+        prof["ops"] = dict(sorted(prof["ops"].items(),
+                                  key=lambda kv: -kv[1]["count"]
+                                  * kv[1]["mean_us"])[:15])
+
+    # Layer 0's attention output against the plain version on its own
+    # inputs, through the kernel and through a control that leaves the
+    # last 64 keys out of every layer's call.  The plain version runs on
+    # q x scale rounded to bf16 first, as the TPU kernel does: at random
+    # init this model's layer-0 logits reach ~155 (q, k, v of std ~5.2,
+    # both recorded), its softmax is one-hot, and that rounding alone moves
+    # the argmax of many rows (recorded beside, against the unrounded plain
+    # version).  So this check mostly sees which key each row picks; the
+    # kernel's numerics at this shape rest on the flash phase's random-input
+    # cases at S 1000 and 1024.
+    kernel_attn = layers.flash_attention_bshd
+
+    def layer0(attn) -> dict:
+        seen = []
+
+        def first_layer(q, k, v, causal, q_offset, scale=None):
+            out = attn(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+            if not seen:
+                s = fa.softmax_scale(q.shape[-1]) if scale is None else scale
+                q_rounded = (q.float() * s).to(q.dtype)
+                row = flash_compare(out, fa.plain(q_rounded, k, v, causal,
+                                                  q_offset, scale=1.0),
+                                    "bfloat16")
+                row["ok"] = (bool(torch.isfinite(out).all())
+                             and row["max_err_over_row_max"] <= BF16_TIGHT)
+                unrounded = flash_compare(
+                    out, fa.plain(q, k, v, causal, q_offset, scale),
+                    "bfloat16")
+                row["vs_unrounded_plain (recorded)"] = {
+                    key: unrounded[key] for key in
+                    ("max_abs_err", "max_err_over_row_max")}
+                logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                                      k.float()) * fa.softmax_scale(q.shape[-1])
+                row["logit_absmax"] = float(logits.abs().max())
+                row["qkv_std"] = [float(t.float().std()) for t in (q, k, v)]
+                del logits
+                seen.append(row)
+            return out
+
+        layers.flash_attention_bshd = first_layer
+        try:
+            step(params, batch)
+        finally:
+            layers.flash_attention_bshd = kernel_attn
+        return seen[0] if seen else {"ok": False,
+                                     "not_reached": "no kernel call"}
+
+    def keys_left_out(q, k, v, causal, q_offset, scale=None):
+        return kernel_attn(q, k[:, :-64], v[:, :-64], causal=causal,
+                           q_offset=q_offset, scale=scale)
+
+    attn0 = layer0(kernel_attn)
+    attn0_control = layer0(keys_left_out)
+    gates["layer0_attention"] = attn0["ok"]
+    gates["control_caught"] = not attn0_control["ok"]
+
+    # The eval rule of the train phase: the kernel's bf16 loss against the
+    # f32 plain loss of the same weights (bf16 -> f32 is exact).
+    with torch.no_grad():
+        l_plain = float(loss_fn(cfg, params, batch, plain_attention=True)[0])
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    act_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        l_f32 = float(loss_fn(cfg32, p32, batch, plain_attention=True)[0])
+    del p32, params, batch
+    torch.cuda.empty_cache()
+    limit = max(EVAL_FACTOR * abs(l_plain - l_f32), EVAL_FLOOR * l_f32)
+    gates["loss_kernel_vs_f32"] = (math.isfinite(l_kernel)
+                                   and abs(l_kernel - l_f32) <= limit)
+
+    flops = encode_flops(cfg, ENCODE_BATCH, ENCODE_SEQ)
+    ok = all(gates.values())
+    emit("encode", ok=ok, nvidia_smi=smi, gates=gates, arch=cfg.name,
+         layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads],
+         head_dim=cfg.resolved_head_dim, causal=cfg.causal,
+         dtype=cfg.param_dtype, params=cfg.param_count(),
+         batch=ENCODE_BATCH, seq=ENCODE_SEQ, route_launches=routes,
+         loss_kernel_bf16=l_kernel, loss_plain_bf16=l_plain,
+         loss_plain_f32=l_f32, kernel_vs_f32=abs(l_kernel - l_f32),
+         plain_vs_f32=abs(l_plain - l_f32), loss_limit=limit,
+         layer0_attention=attn0,
+         control={"defect": "the last 64 keys left out of every layer's "
+                             "attention call",
+                  "layer0_attention": attn0_control,
+                  "caught": gates["control_caught"]},
+         step_s=step_s, step_ms_median=1e3 * median_s,
+         frames_per_s=ENCODE_BATCH * ENCODE_SEQ / median_s,
+         model_flops_per_step=flops,
+         mfu_of_989e12=flops / median_s / BF16_OPS_PER_S,
+         peak_memory_bytes=peak, attention_device_us_traced_step=attention_us,
+         traced_step=prof)
+    if not ok:
+        raise SystemExit("encoder path check failed: "
+                         + ", ".join(k for k, v in gates.items() if not v))
+    return {"wgmma": routes["wgmma"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2132,6 +2333,7 @@ def main() -> int:
     flash = phase_flash(dev)
     serve = phase_serve(dev)
     train = phase_train(dev, smi)
+    encode = phase_encode(dev, smi)
 
     main_t, scale_t = kern["timings"]
     t = flash["timings"]
@@ -2171,9 +2373,15 @@ def main() -> int:
         "serve_launches": serve["ttl_launches"],
     },
         flash_entry("flash_attention_wgmma", "wgmma", t["wgmma_prefill"],
-                    serve["routes"]["wgmma"] + train["wgmma_eval"],
+                    serve["routes"]["wgmma"] + train["wgmma_eval"]
+                    + encode["wgmma"],
                     launches_by_path={"serve": serve["routes"]["wgmma"],
-                                      "train_eval": train["wgmma_eval"]}),
+                                      "train_eval": train["wgmma_eval"],
+                                      "encode": encode["wgmma"]},
+                    hubert={k: {f: t[k].get(f) for f in (
+                        "case", "ms", "device_us", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by")}
+                        for k in ("wgmma_hubert", "wgmma_hubert_1000")}),
         flash_entry("flash_attention_splitkv", "splitkv", t["splitkv_decode"],
                     serve["routes"]["splitkv"],
                     decode_8k={k: t["splitkv_decode_8k"][k] for k in
@@ -2187,11 +2395,7 @@ def main() -> int:
                             train["simt_launcher_serve"]},
                     launches_note="the f32 gate's forward and the serve "
                                   "launcher's reduced defaults (head dim 8 "
-                                  "padded to 64); the bf16 serve run sends "
-                                  "it none",
-                    bf16_serving_shapes={k: {f: t[k][f] for f in ("ms", "device_us")}
-                                 for k in ("simt_prefill_bf16",
-                                           "simt_decode_bf16")}),
+                                  "padded to 64); it takes no bf16 call"),
     ]}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({**RESULT, "summary": summary}, indent=1))

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention.py for bf16 calls with more than 64
-// query rows per KV head at head dim 64 or 128 (the serving path's prefill).
+// query rows per KV head at head dims 64, 80, 96 and 128 (the serving
+// path's prefill at 64 and 128, hubert-xlarge's encoder at 80).
 // For every query row of every (batch, query head) it computes
 //
 //   o = softmax(q . k^T) . v      over the keys kpos < kv_len
@@ -16,7 +17,9 @@
 // prefill (B 4, Hq 32, Hkv 8, S 1024, D 64, causal) the two products are
 // 17.2 GFLOP, 17.4 us at the tensor-core rate, against 12.5 us for the
 // 42 MB of Q/K/V/O: operations bound it, so the products must run on the
-// tensor cores and the K/V stream must overlap them.
+// tensor cores and the K/V stream must overlap them.  At hubert-xlarge's
+// call (B 4, H 16, S 1024, D 80, not causal) the products are 21.5 GFLOP,
+// 21.7 us, against 12.5 us for its 41.9 MB.
 //
 // Design (FlashAttention-3's shape).  A work item is a tile of 128 query
 // rows of one (batch, KV head); its rows are (position, head) pairs of the KV
@@ -37,6 +40,17 @@
 // registers, B = the V tile, MN-major).  The softmax of tile t + 1 runs
 // while the tensor cores do P_t . V_t.  KV tiles wholly above the diagonal
 // are never loaded; the tile that crosses it, and the last one, are masked.
+//
+// Head dims 80 and 96 are not multiples of the 64-column swizzle atom: they
+// run on a padded tile of two atoms, as D 128 does.  TMA reads the second
+// atom past the tensor's D (each map's innermost dimension is the true D,
+// never the row of all heads) and fills the missing columns with zeros, so
+// Q, K and V tiles are zero beyond D.  S = Q . K^T runs at the true depth
+// (D / 16 k-steps of 16 columns, 5 at D 80, 6 at D 96), O += P . V at width
+// 128, and the store writes only the true D's columns; the softmax scale is
+// the true D's (the wrapper passes it).  The padding costs P . V 128 / D of
+// its products: (D + 128) / 2D of the needed work in all, 1.30x at D 80 and
+// 1.17x at D 96.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -60,13 +74,14 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
 // Shared memory: two Q buffers (an item's Q arrives while the last item
-// computes) and a ring of K/V stages, three at D 64 and two at D 128 (227 KB
-// is the limit), all 1024-byte aligned for the 128-byte swizzle; then the
-// mbarriers.
+// computes) and a ring of K/V stages, three at D 64 and two at the padded
+// width 128 (227 KB is the limit), all 1024-byte aligned for the 128-byte
+// swizzle; then the mbarriers.
 template <int D>
 struct Layout {
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kChunks = D / kAtom;                // 128-byte atoms per row
+  static constexpr int kPad = D == 64 ? 64 : 128;          // D padded to whole atoms
+  static constexpr int kStages = kPad == 64 ? 3 : 2;
+  static constexpr int kChunks = kPad / kAtom;             // 128-byte atoms per row
   static constexpr int kQRegion = kRows * 128;             // one atom column of Q
   static constexpr int kKVRegion = kKeys * 128;            // one atom column of K or V
   static constexpr int kQTile = kChunks * kQRegion;        // one Q buffer
@@ -84,7 +99,8 @@ struct Params {
   __nv_bfloat16* o;
   Strides os;
   int batch, sq, hkv, group, npos, q_tiles, causal, q_offset, n_live;
-  int q_bytes;          // bytes one Q buffer receives (group x npos rows)
+  int q_bytes;          // bytes one Q buffer receives (group x npos rows,
+                        // whole atoms: TMA counts the zero fill past D)
   float scale;
 };
 
@@ -278,7 +294,8 @@ struct Mask {
   int n_live, causal, first_qpos, qp0, qp1, col;
 };
 
-// S = Q . K^T of one KV tile into sc, issued and committed, not waited for.
+// S = Q . K^T of one KV tile into sc, issued and committed, not waited for;
+// D / 16 k-steps, so a padded tile's zero columns are never multiplied.
 template <int D>
 __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t q_addr,
                                              uint32_t k_addr) {
@@ -294,17 +311,17 @@ __device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t q_addr,
   fence_regs(sc);
 }
 
-// O += P . V of one KV tile (A = P from registers, B = V, MN-major),
-// issued and committed, not waited for.
+// O += P . V of one KV tile (A = P from registers, B = V, MN-major) at the
+// padded width, issued and committed, not waited for.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[8][4],
-                                         uint32_t v_addr) {
+__device__ __forceinline__ void issue_pv(float (&o)[Layout<D>::kPad / 2],
+                                         const uint32_t (&pa)[8][4], uint32_t v_addr) {
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
     const uint64_t dv = smem_desc(v_addr + kk * 16 * 128, Layout<D>::kKVRegion);
-    if constexpr (D == 64) {
+    if constexpr (Layout<D>::kPad == 64) {
       wgmma_m64n64k16_rs(o, pa[kk], dv);
     } else {
       wgmma_m64n128k16_rs(o, pa[kk], dv);
@@ -363,12 +380,14 @@ __device__ __forceinline__ void softmax(float (&sc)[64], Rows& r, const Mask& mk
   r.l1 = r.l1 * r.a1 + sum1;
 }
 
-// Rescale o by the last factors and take the probabilities to bf16: the S
-// fragment of keys 16 kk .. 16 kk + 15 is wgmma's A fragment for that
-// k-step, so no data moves between threads.
+// Rescale o's true columns by the last factors (a padded tile's others stay
+// zero) and take the probabilities to bf16: the S fragment of keys 16 kk ..
+// 16 kk + 15 is wgmma's A fragment for that k-step, so no data moves between
+// threads.
 template <int D>
-__device__ __forceinline__ void rescale_and_pack(float (&o)[D / 2], uint32_t (&pa)[8][4],
-                                                 const float (&sc)[64], const Rows& r) {
+__device__ __forceinline__ void rescale_and_pack(float (&o)[Layout<D>::kPad / 2],
+                                                 uint32_t (&pa)[8][4], const float (&sc)[64],
+                                                 const Rows& r) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     o[4 * j] *= r.a0;
@@ -496,13 +515,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint8_t* qtile = smem + L::kQ + qb * L::kQTile;
     const uint32_t q_addr = smem_u32(qtile) + cw * 64 * 128;
 
-    // Q rows [64 cw, 64 cw + 64) as TMA left them (positions past Sq are
-    // zero), pre-scaled and rounded in place; rows past the item's are
-    // zeroed.  Elementwise, so the swizzle does not matter.
+    // Q rows [64 cw, 64 cw + 64) as TMA left them (positions past Sq and
+    // columns past D are zero), pre-scaled and rounded in place; rows past
+    // the item's are zeroed.  Elementwise over every 16-byte chunk of the
+    // padded row, so the swizzle does not matter (a padded atom's true
+    // columns sit in chunks that the swizzle moves with the row).
     mbar_wait(&qfull[qb], (n >> 1) & 1);
-    for (int i = ctid; i < 64 * (D / 8); i += 128) {
-      const int r = cw * 64 + i / (D / 8);
-      const int c = i % (D / 8);
+    for (int i = ctid; i < 64 * (L::kPad / 8); i += 128) {
+      const int r = cw * 64 + i / (L::kPad / 8);
+      const int c = i % (L::kPad / 8);
       uint4* chunk = reinterpret_cast<uint4*>(qtile + (c / 8) * L::kQRegion + r * 128 +
                                               (c % 8) * 16);
       *chunk = r < it.n_rows ? flash::scale_round8(*chunk, p.scale) : make_uint4(0, 0, 0, 0);
@@ -513,9 +534,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int first_qpos = p.q_offset + it.pos0;         // the item's least position
     const Mask mask = {p.n_live, p.causal, first_qpos, first_qpos + r0 / p.group,
                        first_qpos + r1 / p.group, col};
-    float o[D / 2];
+    float o[L::kPad / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < L::kPad / 2; ++i) o[i] = 0.f;
     Rows rows = {-INFINITY, -INFINITY, 0.f, 0.f, 1.f, 1.f};
     float sc[64];        // scores, then probabilities, of one KV tile
     uint32_t pa[8][4];   // the last tile's probabilities in bf16 (wgmma A fragments)
@@ -575,7 +596,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int s = it.pos0 + r / p.group, h = it.hk * p.group + r % p.group;
       __nv_bfloat16* out = p.o + it.b * p.os.b + s * p.os.s + h * p.os.h + col;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < D / 8; ++j) {  // the true D's columns only
         *reinterpret_cast<uint32_t*>(out + 8 * j) =
             flash::pack_bf16(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
       }
@@ -611,7 +632,7 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D bf16 tensor map of 64-column boxes, 128-byte swizzled; reads past
-// the dims give zeros.  K and V: (D, S, H, B) in boxes of 128 positions of
+// the dims give zeros (at D 80 / 96 the second box's columns past D).  K and V: (D, S, H, B) in boxes of 128 positions of
 // one head.  Q: (D, H, S, B) in boxes of `group` heads x `npos` positions,
 // so a box's rows are the item's (position, head) rows in order.
 int encode_map(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
@@ -680,7 +701,9 @@ cudaError_t launch(const CUtensorMap& qmap, const CUtensorMap& kmap, const CUten
   const int n_items = p.q_tiles * p.batch * p.hkv;
   if (n_items == 0) return cudaSuccess;
   const int grid = n_items < sms ? n_items : sms;
-  flash_prefill_kernel<D><<<grid, kThreads, Layout<D>::kAlloc, stream>>>(qmap, kmap, vmap, p);
+  Params pd = p;
+  pd.q_bytes = Layout<D>::kChunks * p.q_bytes;
+  flash_prefill_kernel<D><<<grid, kThreads, Layout<D>::kAlloc, stream>>>(qmap, kmap, vmap, pd);
   return cudaGetLastError();
 }
 
@@ -695,7 +718,8 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* 
                              long long v_sb, long long v_ss, long long v_sh, long long o_sb,
                              long long o_ss, long long o_sh, int causal, int q_offset,
                              int n_live, float scale, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kRows || (d != 64 && d != 128)) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kRows ||
+      (d != 64 && d != 80 && d != 96 && d != 128)) {
     return cudaErrorInvalidValue;
   }
   const int group = hq / hkv, npos = kRows / group;
@@ -714,12 +738,16 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v, void* 
   p.group = group;
   p.npos = npos;
   p.q_tiles = (sq + npos - 1) / npos;
-  p.q_bytes = (d / kAtom) * group * npos * 128;
+  p.q_bytes = group * npos * 128;  // one atom column; launch<D> scales it
   p.causal = causal;
   p.q_offset = q_offset;
   p.n_live = n_live;
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(d == 64 ? launch<64>(qmap, kmap, vmap, p, s)
-                                  : launch<128>(qmap, kmap, vmap, p, s));
+  switch (d) {
+    case 64: return static_cast<int>(launch<64>(qmap, kmap, vmap, p, s));
+    case 80: return static_cast<int>(launch<80>(qmap, kmap, vmap, p, s));
+    case 96: return static_cast<int>(launch<96>(qmap, kmap, vmap, p, s));
+    default: return static_cast<int>(launch<128>(qmap, kmap, vmap, p, s));
+  }
 }

@@ -6,13 +6,15 @@ and of each decode step.  Each route replaces the Pallas TPU kernel
 ``_flash_kernel`` of ``src/repro/kernels/flash_attention.py`` for the calls
 :func:`plan` gives it; each source's note gives its design and bound:
 
-``wgmma``    bf16 prefill at head dim 64 or 128 (``csrc/flash_prefill_sm90.cu``:
-             TMA, mbarriers, warp-specialised ``wgmma``);
+``wgmma``    bf16 prefill at every head dim (``csrc/flash_prefill_sm90.cu``:
+             TMA, mbarriers, warp-specialised ``wgmma``; D 80 and 96 on a
+             tile padded to 128 columns);
 ``splitkv``  bf16 calls with at most 64 query rows per KV head -- decode
              steps (``csrc/flash_decode_splitkv.cu``: split-KV over the card,
              then a merge in split order);
-``simt``     float32, and bf16 prefill at head dims 80 and 96
-             (``csrc/flash_attention.cu``: products on the CUDA cores in fp32).
+``simt``     float32 (``csrc/flash_attention.cu``: products on the CUDA cores
+             in fp32, K/V double-buffered by ``cp.async``, a block's warps
+             splitting the keys and merging in order).
 
 The libraries are built by :mod:`repro_torch.kernels.build` (``nvcc`` for
 ``sm_90a`` at first use, into ``build/``).
@@ -39,8 +41,8 @@ from .build import CudaLibrary
 HEAD_DIMS = (64, 80, 96, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("wgmma", "splitkv", "simt")
-#: Head dims of the ``wgmma`` prefill route.
-WGMMA_HEAD_DIMS = (64, 128)
+#: Head dims of the ``wgmma`` prefill route (80 and 96 padded to 128).
+WGMMA_HEAD_DIMS = (64, 80, 96, 128)
 #: Most query rows (``Sq * group``) a ``splitkv`` block holds.
 DECODE_MAX_ROWS = 64
 #: Keys per ``splitkv`` tile; splits are whole tiles.
@@ -56,7 +58,7 @@ _STRIDES = [ctypes.c_longlong] * 12
 
 def _bind_simt(lib: ctypes.CDLL) -> None:
     lib.flash_attention.argtypes = (
-        _PTRS + [ctypes.c_int] * 6 + _STRIDES
+        _PTRS + [ctypes.c_int] * 5 + _STRIDES
         + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention.restype = ctypes.c_int
 
@@ -190,21 +192,19 @@ def plan(q, k, causal: bool = True, q_offset: int = 0,
 
     - float32 -> ``simt``;
     - bf16 with ``Sq * group <= 64`` -> ``splitkv``, over the live keys;
-    - bf16 at head dim 64 or 128 -> ``wgmma``;
-    - other bf16 head dims (80, 96) -> ``simt``.
+    - every other bf16 call -> ``wgmma`` (D 64 / 80 / 96 / 128, causal or
+      not).
 
     ``splits`` is 1 except for ``splitkv``.  Works on shapes only, so the
     CPU tests check it."""
-    b, sq, hq, d = q.shape
+    b, sq, hq, _d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16:
         return "simt", 1
     if sq * (hq // hkv) <= DECODE_MAX_ROWS:
         return "splitkv", decode_splits(
             b * hkv, live_keys(sq, skv, causal, q_offset), sms)
-    if d in WGMMA_HEAD_DIMS:
-        return "wgmma", 1
-    return "simt", 1
+    return "wgmma", 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -244,17 +244,16 @@ def _check(q, k, v) -> None:
 
 
 def _check_route(route: str, q, k) -> None:
-    """Raise unless ``route`` takes these inputs.  The bf16 routes read rows
-    by TMA or 16-byte vector loads: base addresses 16-byte aligned and
-    batch / position / head strides multiples of 16 bytes."""
+    """Raise unless ``route`` takes these inputs: ``simt`` float32, the
+    others bf16.  Every route reads rows by TMA or 16-byte loads (see
+    :func:`_check_alignment`)."""
     if route not in ROUTES:
         raise ValueError(f"unknown flash route {route!r}; have {ROUTES}")
-    if route == "simt":
-        return
     b, sq, hq, d = q.shape
     group = hq // k.shape[2]
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the {route} route takes bf16, not {q.dtype}")
+    want = torch.float32 if route == "simt" else torch.bfloat16
+    if q.dtype != want:
+        raise TypeError(f"the {route} route takes {want}, not {q.dtype}")
     if route == "wgmma" and (d not in WGMMA_HEAD_DIMS or group > 128):
         raise ValueError(f"the wgmma route takes head dims {WGMMA_HEAD_DIMS} "
                          f"and query groups of at most 128, not D={d}, "
@@ -319,8 +318,7 @@ def _launch(route: str, q, k, v, causal: bool, q_offset: int,
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    if route != "simt":
-        _check_alignment(route, {"q": q, "k": k, "v": v})
+    _check_alignment(route, {"q": q, "k": k, "v": v})
     lib = LIBRARIES[route].load()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
@@ -346,8 +344,8 @@ def _launch(route: str, q, k, v, causal: bool, q_offset: int,
                                    n_live, n_split, per, scale, stream)
         else:
             err = lib.flash_attention(
-                *ptrs, int(q.dtype == torch.bfloat16), b, sq, hq, hkv, d,
-                *strides, int(causal), int(q_offset), skv, scale, stream)
+                *ptrs, b, sq, hq, hkv, d, *strides, int(causal),
+                int(q_offset), skv, scale, stream)
     if err != 0:
         raise RuntimeError(f"flash attention ({route} route) failed to launch: "
                            f"{_describe(err)}")

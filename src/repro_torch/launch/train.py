@@ -32,6 +32,15 @@ from ..train import (
 )
 
 
+def frontend_frames(cfg, tokens: np.ndarray) -> np.ndarray:
+    """The modality frontend stub (as in the reference's launcher): token ids
+    ``[B, S]`` hashed into fake frame embeddings ``[B, S, frontend_dim]``
+    through a table drawn from ``default_rng(0)``."""
+    table = np.random.default_rng(0).normal(
+        size=(cfg.vocab, cfg.frontend_dim)).astype(np.float32)
+    return np.take(table, tokens, axis=0)
+
+
 def build_store(root: str, device="cuda"):
     cat = pick_regions(3)
     backends = make_backends(list(cat.region_names()), "fs", root=root)
@@ -94,12 +103,8 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     for i, batch in zip(range(args.steps), source):
         if cfg.frontend:
-            # frontend stub: hash tokens into fake frame embeddings
-            emb = (np.take(
-                np.random.default_rng(0).normal(
-                    size=(cfg.vocab, cfg.frontend_dim)).astype(np.float32),
-                batch["inputs"], axis=0))
-            batch = {"inputs": emb, "labels": batch["labels"]}
+            batch = {"inputs": frontend_frames(cfg, batch["inputs"]),
+                     "labels": batch["labels"]}
         tb = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
               for k, v in batch.items()}
         state, metrics = step_fn(state, tb)

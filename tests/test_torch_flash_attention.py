@@ -183,12 +183,15 @@ def _shapes(b, hq, hkv, sq, skv, d, dtype=torch.bfloat16):
     # 64 rows per KV head is still a decode; 65 is not
     ((1, 8, 2, 16, 200, 64), True, 150, ("splitkv", 3)),
     ((1, 4, 1, 65, 200, 64), True, 0, ("wgmma", 1)),
-    # the CUDA-core route: D 80 / 96 prefill
-    ((2, 2, 2, 200, 200, 80), True, 0, ("simt", 1)),
-    ((1, 8, 4, 130, 257, 96), True, 0, ("simt", 1)),
+    # D 80 / 96 prefill on the padded wgmma tile, causal or not
+    ((2, 2, 2, 200, 200, 80), True, 0, ("wgmma", 1)),
+    ((1, 8, 4, 130, 257, 96), True, 0, ("wgmma", 1)),
     ((1, 4, 1, 1, 257, 80), True, 256, ("splitkv", 5)),
     # non-causal decode reads every key
     ((2, 8, 2, 1, 300, 64), False, 0, ("splitkv", 5)),
+    # hubert-xlarge's encoder (B 4, H 16, S 1024, D 80, not causal)
+    ((4, 16, 16, 1024, 1024, 80), False, 0, ("wgmma", 1)),
+    ((4, 16, 16, 1000, 1000, 80), False, 0, ("wgmma", 1)),
 ])
 def test_plan_routes_bf16_by_shape(shape, causal, off, want):
     q, k = _shapes(*shape)
@@ -198,11 +201,100 @@ def test_plan_routes_bf16_by_shape(shape, causal, off, want):
 @pytest.mark.parametrize("shape", [(4, 32, 8, 1024, 1024, 64),
                                    (4, 32, 8, 1, 1056, 64),
                                    (2, 2, 2, 200, 200, 80),
-                                   (1, 8, 4, 130, 257, 96)])
+                                   (1, 8, 4, 130, 257, 96),
+                                   (1, 32, 8, 256, 256, 64)])
 def test_plan_sends_float32_to_the_cuda_core_route(shape):
     """f32 keeps the reference's 2e-5 tolerance only with f32 products."""
     q, k = _shapes(*shape, dtype=torch.float32)
     assert fa.plan(q, k, True, 0) == ("simt", 1)
+
+
+@pytest.mark.parametrize("route,dtype", [("simt", torch.bfloat16),
+                                         ("wgmma", torch.float32),
+                                         ("splitkv", torch.float32)])
+def test_routes_refuse_the_other_dtype(route, dtype):
+    """``simt`` takes float32 only; the tensor-core routes bf16 only."""
+    q, k = _shapes(1, 4, 4, 8, 8, 64, dtype=dtype)
+    with pytest.raises(TypeError, match=f"the {route} route takes"):
+        fa._check_route(route, q, k)
+
+
+#: Non-causal D 80 / 96 prefill (hubert-xlarge's encoder calls, at small
+#: width), in f32 and bf16.
+PADDED_CASES = [
+    (2, 4, 4, 200, 200, 80, False, 0, jnp.float32),
+    (2, 4, 4, 200, 200, 80, False, 0, jnp.bfloat16),
+    (1, 8, 4, 130, 257, 96, True, 0, jnp.bfloat16),
+    (1, 4, 2, 100, 100, 96, False, 0, jnp.float32),
+]
+
+
+def _plain_padded(q, k, v, causal, q_offset):
+    """The padded tile's arithmetic in plain PyTorch: q, k and v
+    zero-padded to two 64-column atoms (128 columns), the true D's softmax
+    scale, the padded columns of the output dropped."""
+    d = q.shape[-1]
+    pad = [0, 128 - d]
+    out = fa.plain(*(torch.nn.functional.pad(t, pad) for t in (q, k, v)),
+                   causal, q_offset, scale=fa.softmax_scale(d))
+    return out[..., :d]
+
+
+@pytest.mark.parametrize("case", PADDED_CASES,
+                         ids=lambda c: "-".join(map(str, c[:8])) + f"-{c[8].__name__}")
+def test_padded_tile_equals_plain_and_pallas_kernel(case):
+    """The wgmma route's padded tile at D 80 / 96 (inputs zero-padded to 128
+    columns, the true D's scale, the extra columns dropped) is the plain
+    version on the unpadded inputs -- to f32 rounding, whose sums run over
+    zero columns in another blocking -- and the TPU kernel's result within
+    the reference sweep's tolerance."""
+    b, hq, hkv, sq, skv, d, causal, off, dtype = case
+    q, k, v = (torch.from_numpy(x).to(TORCH_DTYPE[dtype]).transpose(1, 2)
+               for x in _qkv(b, hq, hkv, sq, skv, d, seed=b * 31 + sq + skv))
+    got = _plain_padded(q, k, v, causal, off)
+    want = fa.plain(q, k, v, causal, off)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if dtype == jnp.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:   # one bf16 rounding of the output apart at most
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -7, atol=2.0 ** -7)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.transpose(1, 2).float().numpy(),
+                               _pallas(case), rtol=tol, atol=tol)
+
+
+def _plain_rounded_q(q, k, v, causal, q_offset):
+    """The plain version on q x d**-0.5 rounded to q's dtype first."""
+    q = (q.float() * fa.softmax_scale(q.shape[-1])).to(q.dtype)
+    return fa.plain(q, k, v, causal, q_offset, scale=1.0)
+
+
+@pytest.mark.parametrize("scale", [1.0, 5.0, 25.0])
+def test_plain_with_rounded_q_is_the_pallas_kernels_function(scale):
+    """The TPU wrapper rounds q x d**-0.5 to q's dtype before its kernel,
+    and so do the bf16 routes.  Where logits are large that rounding moves
+    the argmax of near-tied rows: hubert-xlarge's layer 0 at random init
+    has q, k, v of std ~5.2 and logits up to 155 (a one-hot softmax); x25
+    reaches logits in the thousands.  So only the plain version on the
+    rounded q follows the TPU kernel row for row: each output row within
+    2**-5 of its largest |value| (bf16 outputs), at every scale."""
+    case = (1, 4, 2, 96, 96, 80, False, 0, jnp.bfloat16)
+    q, k, v = (x * np.float32(scale) for x in _qkv(*case[:6], seed=17))
+    want = np.asarray(r_ops.flash_attention(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=False, interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).transpose(1, 2)
+                  for x in (q, k, v))
+    got = _plain_rounded_q(tq, tk, tv, False, 0).transpose(1, 2)
+    err = np.abs(got.float().numpy() - want)
+    row_max = np.abs(want).max(axis=-1, keepdims=True)
+    assert (err <= 2.0 ** -5 * row_max).all()
+    if scale == 1.0:   # f32 at unit scale: one f32 rounding of q x scale
+        f32 = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
+        torch.testing.assert_close(_plain_rounded_q(*f32, False, 0),
+                                   fa.plain(*f32, False, 0),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_decode_splits_fill_the_card():

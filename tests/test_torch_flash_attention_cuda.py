@@ -10,12 +10,14 @@ runs as it is on a machine with a card:
 Cases: the six of ``tests/test_kernels.py::test_flash_attention_vs_oracle``,
 the shape of its ``test_flash_attention_block_sweep`` (the TPU block sizes
 are the kernel's own here) and the serving path's prefill and decode
-shapes.  Then each route forced on the cases it takes: ``wgmma`` (bf16
-prefill, D 64 / 128, with query groups of 4, 1, 2, 7 and 8), ``splitkv``
-(bf16 with at most 64 query rows per KV head: the serving decode, an
-8,192-key cache, group 7 at D 128, D 80 / 96, short chunks) and ``simt`` in
-bf16; the ``[B, H, S, D]`` view; determinism of decode; the 16-byte
-alignment the bf16 routes need; and each route's counter against the plan.
+shapes; the f32 ``simt`` kernel at short lengths, where a block's row tile
+is mostly empty.  Then each bf16 route forced on the cases it takes:
+``wgmma`` (prefill at D 64 / 128 with query groups of 4, 1, 2, 7 and 8, and
+at D 80 / 96 on the padded tile, causal or not, hubert-xlarge's call at
+S 1000 among them) and ``splitkv`` (at most 64 query rows per KV head: the
+serving decode, an 8,192-key cache, group 7 at D 128, D 80 / 96, short
+chunks); the ``[B, H, S, D]`` view; determinism of decode; the 16-byte
+alignment every route needs; and each route's counter against the plan.
 Tolerance: the reference sweep's own, 2e-5 in f32 and 2e-2 in bf16 (the
 kernels round the pre-scaled q to bf16, and ``wgmma`` rounds p to bf16 for
 its second product; the plain version scales fp32 logits and keeps p in
@@ -48,6 +50,8 @@ CASES = [
     (1, 2, 2, 384, 384, 64, True, 0, F32),         # the block-sweep shape
     (4, 32, 8, 1024, 1024, 64, True, 0, BF16),     # serving prefill
     (4, 32, 8, 1, 1056, 64, True, 1040, BF16),     # serving decode
+    (1, 32, 8, 256, 256, 64, True, 0, F32),        # the f32 gate's call
+    (1, 8, 2, 100, 356, 96, True, 256, F32),       # an f32 chunk at an offset
 ]
 
 
@@ -81,6 +85,31 @@ def test_kernel_matches_plain_version_on_card(card, b, hq, hkv, sq, skv, d,
     assert fa.flash_attention_bshd.launches == before + 1
     tol = 2e-5 if dtype == F32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+#: f32 calls shorter than a block's row tile (32 rows at D 64, 16 above)
+#: or just past it, against few keys and against many: every row written,
+#: each warp's share of the keys merged (B, Hq, Hkv, Sq, Skv, D, causal, off).
+SHORT_F32 = [
+    (3, 6, 2, 5, 5, 64, True, 0),
+    (2, 4, 4, 33, 40, 128, False, 0),
+    (1, 8, 1, 3, 700, 80, True, 697),
+    (2, 2, 1, 17, 17, 96, True, 0),
+    (1, 4, 4, 9, 1, 64, False, 0),
+]
+
+
+@pytest.mark.parametrize("case", SHORT_F32, ids=lambda c: "-".join(map(str, c)))
+def test_simt_covers_every_row_at_short_lengths(card, case):
+    b, hq, hkv, sq, skv, d, causal, off = case
+    q, k, v = (torch.from_numpy(x).to(card).transpose(1, 2)
+               for x in _qkv(b, hq, hkv, sq, skv, d, seed=sq * 7 + skv))
+    assert fa.plan(q, k, causal, off)[0] == "simt"
+    got = fa.flash_attention_bshd(q, k, v, causal=causal, q_offset=off)
+    want = fa.plain(q, k, v, causal, off)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_kernel_rejects_what_it_does_not_take(card):
@@ -136,8 +165,10 @@ ROUTE_CASES = [
     (1, 4, 1, 1, 257, 80, True, 256, "splitkv"),
     (1, 8, 4, 2, 130, 96, True, 128, "splitkv"),
     (1, 4, 1, 1, 1056, 64, True, 10, "splitkv"),      # few live keys
-    (2, 2, 2, 200, 200, 80, True, 0, "simt"),
-    (1, 8, 4, 130, 257, 96, True, 0, "simt"),
+    (2, 2, 2, 200, 200, 80, True, 0, "wgmma"),       # the padded tile
+    (1, 8, 4, 130, 257, 96, True, 0, "wgmma"),
+    (4, 16, 16, 1000, 1000, 80, False, 0, "wgmma"),   # hubert-xlarge, S 1000
+    (1, 4, 2, 100, 356, 96, False, 0, "wgmma"),
 ]
 
 
@@ -216,6 +247,13 @@ def test_misaligned_layouts_raise(card):
     for route, qq in (("wgmma", q), ("splitkv", q[:, :1])):
         with pytest.raises(ValueError, match="16-byte aligned"):
             fa._launch(route, qq, shifted, v, True, 99, 1)
+    flat32 = torch.zeros(k.numel() + 1, dtype=F32, device=card)
+    shifted32 = flat32[1:].view(k.shape)
+    shifted32.copy_(k)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch("simt", q.float(), shifted32, v.float(), True, 99, 1)
+    with pytest.raises(TypeError, match="simt route takes"):
+        fa._launch("simt", q, k, v, True, 0, 1)
     with pytest.raises(ValueError, match="splitkv route holds"):
         fa._launch("splitkv", q, k, v, True, 0, 1)
     with pytest.raises(TypeError):

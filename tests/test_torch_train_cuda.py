@@ -17,7 +17,14 @@ card and skips itself without one.  The file imports only the port (no JAX):
 - ``python -m repro_torch.launch.serve`` and ``python -m
   repro_torch.launch.train`` with their default arguments exit 0 on the
   card.
+- hubert-xlarge's eval step at full width (d 1280, 16 heads, head dim 80,
+  not causal, bf16) cut to 2 layers, on frames from the frontend stub: one
+  ``wgmma`` launch a layer and no ``simt``; the bf16 loss through the kernel
+  no further from the f32 plain loss than 1.5x the plain bf16 loss is (or
+  1e-3 of it), the rule of ``chip_smoke.py``'s eval gates.
 """
+
+import dataclasses
 
 import os
 import subprocess
@@ -30,7 +37,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch.train import frontend_frames
 from repro_torch.models import forward, init_params, layers, loss_fn
+from repro_torch.train import make_eval_step
 from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +129,23 @@ def test_launcher_default_command_runs_on_card(card, module):
     out = subprocess.run([sys.executable, "-m", module], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+def test_hubert_eval_step_at_full_width_runs_on_wgmma(card):
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), n_layers=2)
+    params = init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 1025))
+    batch = {"inputs": torch.from_numpy(frontend_frames(cfg, toks[:, :-1])).to(card),
+             "labels": torch.from_numpy(toks[:, 1:]).to(card)}
+    before = dict(fa.flash_attention_bshd.route_launches)
+    l_kernel = float(make_eval_step(cfg)(params, batch)["loss"])
+    after = fa.flash_attention_bshd.route_launches
+    assert {r: after[r] - before[r] for r in fa.ROUTES} == {
+        "wgmma": 2, "splitkv": 0, "simt": 0}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", act_dtype="float32")
+    with torch.no_grad():
+        l_plain = float(loss_fn(cfg, params, batch, plain_attention=True)[0])
+        l_f32 = float(loss_fn(cfg32, tree_map(lambda t: t.float(), params),
+                              batch, plain_attention=True)[0])
+    limit = max(1.5 * abs(l_plain - l_f32), 1e-3 * l_f32)
+    assert np.isfinite(l_kernel) and abs(l_kernel - l_f32) <= limit
