@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs nine
+(one nvcc per source for sm_90a, all started together), then runs eleven
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -57,7 +57,8 @@ first that fails:
              main-path shapes (wgmma: serving prefill and hubert-xlarge's
              call at S 1024 and 1000; splitkv: serving decode, warm and with
              L2 flushed, and the 8,192-key decode; simt: the f32 gate's
-             shape) beside the plain version's, the bound and
+             shape; both bf16 routes at qwen2-moe-a2.7b's calls too) beside
+             the plain version's, the bound and
              scaled_dot_product_attention's;
   serve      the serving path: ``repro_torch.launch.serve`` at full width
              (llama3.2-1b, bf16, seeded random weights; 6 requests of batch
@@ -99,7 +100,34 @@ first that fails:
              it, and a control (the last 64 keys left out) caught; the
              step's ms (median of 10 after 2), frames/s, model-FLOPs share
              and peak memory, and a traced step's device time by kernel and
-             idle share.
+             idle share;
+  moe_serve  the MoE serving path: ``repro_torch.launch.serve`` with
+             qwen2-moe-a2.7b at full width and depth (24 layers, d 2048, 16
+             / 16 heads of 128, 60 routed experts top-4 + 4 shared, bf16,
+             seeded weights; the serve phase's requests), wgmma launches =
+             layers x prefills, splitkv = layers x decode steps, simt none;
+             the tier's caches bit-equal to fresh prefills, which also count
+             each MoE layer's dropped (token, k) pairs at capacity factor
+             1.25; a traced hit request; with the routing pinned to an f32
+             run's, the bf16 logits through the kernels held to the f32
+             logits by mean error and argmax agreement against the plain
+             bf16 run's, layer 0's attention within 2^-5 of each row's
+             largest value (q rounded as the kernel rounds it), and a
+             control (64 keys cut from layer 0's call) caught; the f32 gate
+             on simt cut to 2 layers;
+  mixers     deepseek-v2-lite-16b (its dense layer and 2 MLA / MoE layers;
+             MLA prefill on the plain attention), jamba-v0.1-52b (one repeat
+             of its 8-layer pattern; attention on wgmma / splitkv) and
+             rwkv6-3b (32 layers) at full width, weights drawn per layer:
+             a 1,024-token bf16 prefill and 8 decode steps, finite, the
+             launches per route, the first layer's caches within 2^-5 of a
+             prefill of the whole sequence; in f32 activations on the first
+             8 layers each step's logits within 2^-4 of each row's scale of
+             a full forward of the extended sequence where both compute the
+             same function (drop counts equal, an RWKV6 chunk start); the
+             four reduced configs
+             in f32, card against CPU within 1e-4; MLA prefill on the card
+             without plain attention raising, naming item 14.
 
 Then it prints the per-kernel summary line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -1241,6 +1269,11 @@ HUBERT_ATTN_1000 = (4, 16, 16, 1000, 1000, 80, False, 0, "bfloat16")
 #: A large non-causal f32 call (B 2, H 16, S 1024, D 64): the simt
 #: kernel's rate once every SM has whole waves of work (timed only).
 SIMT_LARGE = (2, 16, 16, 1024, 1024, 64, False, 0, "float32")
+#: qwen2-moe-a2.7b's calls in the moe_serve phase: prefill (B 4, 16 / 16
+#: heads, group 1, S 1024, D 128, causal) and a decode step late in its
+#: 1056-slot cache.
+MOE_PREFILL = (4, 16, 16, 1024, 1024, 128, True, 0, "bfloat16")
+MOE_DECODE = (4, 16, 16, 1, 1056, 128, True, 1040, "bfloat16")
 #: Each bf16 route forced on cases of its own: group 7 at D 128
 #: (qwen2-vl-7b 28/4, deepseek-coder-33b 56/8), a chunk at an offset,
 #: the 8,192-key decode, and D 80 / 96 on the padded wgmma tile.
@@ -1374,6 +1407,34 @@ def flash_compare(got, want, dtype: str) -> dict:
             "max_err_over_row_max": rel, "ok": ok}
 
 
+def layer0_compare(out, q, k, v, causal, q_offset, scale=None) -> dict:
+    """A bf16 route's output for a model's attention call against the plain
+    version on the same inputs, with q x scale rounded to bf16 first, as
+    the TPU kernel (and each bf16 route) rounds it: each row within
+    BF16_TIGHT of its largest value.  At random init ``init_params``, like
+    the reference's initialiser, draws a stacked leaf with the layer count
+    as its fan-in, so q, k and v come out ~sqrt(d / layers) times unit
+    scale, layer 0's logits reach the hundreds and its softmax is one-hot;
+    the rounding of q alone then moves the argmax of near-tied rows
+    (recorded beside, against the unrounded plain version).  So this check
+    mostly sees which key each row picks; a route's numerics rest on the
+    flash phase's random-input cases."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    s = fa.softmax_scale(q.shape[-1]) if scale is None else scale
+    q_rounded = (q.float() * s).to(q.dtype)
+    row = flash_compare(out, fa.plain(q_rounded, k, v, causal, q_offset,
+                                      scale=1.0), "bfloat16")
+    row["ok"] = (bool(torch.isfinite(out).all())
+                 and row["max_err_over_row_max"] <= BF16_TIGHT)
+    unrounded = flash_compare(out, fa.plain(q, k, v, causal, q_offset, scale),
+                              "bfloat16")
+    row["vs_unrounded_plain (recorded)"] = {
+        key: unrounded[key] for key in ("max_abs_err", "max_err_over_row_max")}
+    return row
+
+
 def _bshd(x):
     return x.transpose(1, 2)
 
@@ -1501,7 +1562,7 @@ def phase_flash(dev) -> dict:
 
     checks = []
     planned = FLASH_CASES + [FLASH_PREFILL, FLASH_DECODE, FLASH_F32,
-                             HUBERT_ATTN]
+                             HUBERT_ATTN, MOE_PREFILL, MOE_DECODE]
     todo = [(c, None) for c in planned] + FLASH_ROUTE_CASES
     for case, route in todo:
         checks.append(flash_check(case, dev, route))
@@ -1528,6 +1589,9 @@ def phase_flash(dev) -> dict:
         "wgmma_hubert_1000": flash_timing(HUBERT_ATTN_1000, dev, "wgmma", 20),
         "simt_f32": flash_timing(FLASH_F32, dev, "simt", 50),
         "simt_f32_large": flash_timing(SIMT_LARGE, dev, "simt", 10),
+        "wgmma_moe_prefill": flash_timing(MOE_PREFILL, dev, "wgmma", 20),
+        "splitkv_moe_decode": flash_timing(MOE_DECODE, dev, "splitkv", 200,
+                                           cold=True),
     }
     emit("flash", ok=True, routes=list(fa.ROUTES), tol=FLASH_TOL,
          tight=BF16_TIGHT, checks=checks, controls=controls, timings=timings,
@@ -2196,15 +2260,10 @@ def phase_encode(dev, smi: str) -> dict:
                                   * kv[1]["mean_us"])[:15])
 
     # Layer 0's attention output against the plain version on its own
-    # inputs, through the kernel and through a control that leaves the
-    # last 64 keys out of every layer's call.  The plain version runs on
-    # q x scale rounded to bf16 first, as the TPU kernel does: at random
-    # init this model's layer-0 logits reach ~155 (q, k, v of std ~5.2,
-    # both recorded), its softmax is one-hot, and that rounding alone moves
-    # the argmax of many rows (recorded beside, against the unrounded plain
-    # version).  So this check mostly sees which key each row picks; the
-    # kernel's numerics at this shape rest on the flash phase's random-input
-    # cases at S 1000 and 1024.
+    # inputs (``layer0_compare``: layer 0's logits reach ~155 here, q, k, v
+    # of std ~5.2 = sqrt(1280 / 48), both recorded), through the kernel
+    # and through a control that leaves the last 64 keys out of every
+    # layer's call.
     kernel_attn = layers.flash_attention_bshd
 
     def layer0(attn) -> dict:
@@ -2213,19 +2272,7 @@ def phase_encode(dev, smi: str) -> dict:
         def first_layer(q, k, v, causal, q_offset, scale=None):
             out = attn(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
             if not seen:
-                s = fa.softmax_scale(q.shape[-1]) if scale is None else scale
-                q_rounded = (q.float() * s).to(q.dtype)
-                row = flash_compare(out, fa.plain(q_rounded, k, v, causal,
-                                                  q_offset, scale=1.0),
-                                    "bfloat16")
-                row["ok"] = (bool(torch.isfinite(out).all())
-                             and row["max_err_over_row_max"] <= BF16_TIGHT)
-                unrounded = flash_compare(
-                    out, fa.plain(q, k, v, causal, q_offset, scale),
-                    "bfloat16")
-                row["vs_unrounded_plain (recorded)"] = {
-                    key: unrounded[key] for key in
-                    ("max_abs_err", "max_err_over_row_max")}
+                row = layer0_compare(out, q, k, v, causal, q_offset, scale)
                 logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                                       k.float()) * fa.softmax_scale(q.shape[-1])
                 row["logit_absmax"] = float(logits.abs().max())
@@ -2293,6 +2340,567 @@ def phase_encode(dev, smi: str) -> dict:
     return {"wgmma": routes["wgmma"]}
 
 
+
+# -- the MoE serving path (qwen2-moe-a2.7b) ------------------------------------
+
+MOE_SERVE_ARGS = ["--arch", "qwen2-moe-a2.7b", "--no-reduced", "--requests",
+                  "6", "--batch", "4", "--prompt-len", "1024", "--gen", "32",
+                  "--seed", "0", "--device", "cuda"]
+MOE_GATE_LEN = 256
+#: The f32 gate on simt keeps 2 of the 24 layers: 57 GB of f32 parameters
+#: at full depth do not fit beside the bf16 ones.
+MOE_F32_LAYERS = 2
+#: The bf16 check holds the kernels' forward to the plain attention's by
+#: their distance from the f32 logits (activations in f32 on the same bf16
+#: weights: bf16 -> f32 is exact), with the MoE routing pinned to the f32
+#: run's decisions in all three.  Unpinned, a router's top-k flips at
+#: near-ties between two runs, one flip moves that token's whole MLP
+#: output, and over 24 layers the flips compound until the bf16 logits keep
+#: about a third of the f32 argmaxes, kernels or not (both recorded); that
+#: noise would hide any attention defect.  Pinned, the gate takes the mean
+#: absolute error (x BF16_MEAN_FACTOR of the plain run's) and the share of
+#: rows whose argmax agrees with f32 (the plain run's less
+#: MOE_ARGMAX_SLACK, 13 rows of 256); the largest error is recorded.
+MOE_ARGMAX_SLACK = 0.05
+
+
+class MoERoutes:
+    """While active, wraps ``layers.moe_route``: without ``routes`` it
+    records each call's decision; with them it hands them back in call
+    order instead of routing."""
+
+    def __init__(self, routes=None):
+        self.replay = routes is not None
+        self.routes = list(routes or [])
+        self.calls = 0
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self._orig = layers.moe_route
+
+        def pinned(cfg, p, x):
+            self.calls += 1
+            if self.replay:
+                return self.routes[self.calls - 1]
+            route = self._orig(cfg, p, x)
+            self.routes.append(route)
+            return route
+
+        layers.moe_route = pinned
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.moe_route = self._orig
+
+    def drops(self) -> list:
+        """Each call's dropped (token, k) pairs per sequence."""
+        return [(~r.keep).sum(-1).tolist() for r in self.routes]
+
+
+def bf16_vs_f32(logits, ref32) -> dict:
+    err = (logits.float() - ref32).abs()
+    return {"max_abs": float(err.max()), "mean_abs": float(err.mean()),
+            "argmax_agreement":
+                float((logits.argmax(-1) == ref32.argmax(-1)).double().mean())}
+
+
+def phase_moe_serve(dev, smi: str) -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ttl_scan
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import forward, layers
+    from repro_torch.serve import prefill
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gates = {}
+    args = launch_serve.build_parser().parse_args(MOE_SERVE_ARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ttl_scan.ttl_cost_surface.launches = 0
+    t0 = time.perf_counter()
+    res = launch_serve.run(args)
+    wall = time.perf_counter() - t0
+    route_launches = dict(fa.flash_attention_bshd.route_launches)
+    ttl_launches = ttl_scan.ttl_cost_surface.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, params, tier = res["cfg"], res["params"], res["tier"]
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    tier_stats = json.loads(json.dumps(tier.stats))
+
+    prefills = res["hit"].count(False)
+    steps = sum(res["decode_steps"])
+    want_routes = {"wgmma": cfg.n_layers * prefills,
+                   "splitkv": cfg.n_layers * steps, "simt": 0}
+    gates["route_launches"] = route_launches == want_routes
+    gates["three_misses_three_hits"] = res["hit"] == [False] * 3 + [True] * 3
+    tokens = torch.stack(res["tokens"])
+    gates["tokens"] = (tuple(tokens.shape) == (args.requests, args.batch,
+                                               args.gen)
+                       and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    prefill_s = [x for x in res["prefill_s"] if x is not None]
+    decode_s = sum(res["decode_s"])
+    n_tok = args.requests * args.batch * args.gen
+
+    # The tier's caches against a fresh prefill of each prompt, bit for
+    # bit; the same prefills count each MoE layer's dropped pairs.
+    prompts = launch_serve.make_prompts(cfg, args)
+    payload_ok, drops = [], []
+    for prompt, blk in zip(prompts[:3], tier.blocks.values()):
+        with MoERoutes() as rd, torch.no_grad():
+            _lg, fresh, _pos = prefill(cfg, params, prompt.to(dev),
+                                       max_len=args.prompt_len + args.gen)
+        drops.append(rd.drops())
+        stored = blk.payload[0]
+        payload_ok.append(all(
+            torch.equal(stored[g][n][key], fresh[g][n][key])
+            for g in fresh for n in fresh[g] for key in fresh[g][n]))
+        del fresh
+    gates["tier_caches_bit_equal"] = all(payload_ok)
+    reuse_agree = float(torch.stack([
+        (tokens[i] == tokens[i + 3]).double().mean() for i in range(3)]).mean())
+    cap = max(int(cfg.moe.capacity_factor * cfg.moe.top_k * args.prompt_len
+                  / cfg.moe.n_routed), min(8, args.prompt_len * cfg.moe.top_k))
+
+    # A hit request traced: where the card's time goes in decode.
+    prof = device_profile(lambda: launch_serve.serve(
+        cfg, params, prompts[:1], args.gen, tier, dev))
+    if "ops" in prof:
+        prof["ops"] = dict(sorted(prof["ops"].items(),
+                                  key=lambda kv: -kv[1]["count"]
+                                  * kv[1]["mean_us"])[:20])
+    tier.blocks.clear()
+    del res
+    torch.cuda.empty_cache()
+
+    # Kernels against plain attention, bf16, at full width and depth; the
+    # f32 reference runs f32 activations on the same bf16 weights.
+    toks = torch.randint(0, cfg.vocab, (1, MOE_GATE_LEN),
+                         generator=torch.Generator().manual_seed(12)).to(dev)
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    kernel_attn = layers.flash_attention_bshd
+    with torch.no_grad(), MoERoutes() as pin:
+        lp = forward(cfg32, params, toks, plain_attention=True)[0]
+
+    def bf16_forward(plain=False, routes=None, cut_layer=None):
+        """bf16 logits (routing pinned to ``routes`` if given) and layer
+        0's attention held to the plain version on its own inputs
+        (``layer0_compare``); the last 64 keys cut from layer
+        ``cut_layer``'s call."""
+        seen, calls = [], [0]
+
+        def attn(q, k, v, causal, q_offset, scale=None):
+            i = calls[0]
+            calls[0] += 1
+            cut = slice(None, -64 if i == cut_layer else None)
+            out = kernel_attn(q, k[:, cut], v[:, cut], causal=causal,
+                              q_offset=q_offset, scale=scale)
+            if i == 0:
+                row = layer0_compare(out, q, k, v, causal, q_offset, scale)
+                row["qkv_std"] = [float(t.float().std()) for t in (q, k, v)]
+                seen.append(row)
+            return out
+
+        layers.flash_attention_bshd = attn
+        try:
+            with torch.no_grad(), MoERoutes(routes):
+                logits = forward(cfg, params, toks,
+                                 plain_attention=plain)[0]
+        finally:
+            layers.flash_attention_bshd = kernel_attn
+        return logits, (seen[0] if seen else None)
+
+    fa.reset_launches()
+    lk16, layer0 = bf16_forward(routes=pin.routes)
+    bf16_routes = dict(fa.flash_attention_bshd.route_launches)
+    lc16, layer0_control = bf16_forward(routes=pin.routes, cut_layer=0)
+    lp16, _ = bf16_forward(plain=True, routes=pin.routes)
+    e_k, e_p, e_c = (bf16_vs_f32(x, lp) for x in (lk16, lp16, lc16))
+    unpinned = {"kernel_vs_f32": bf16_vs_f32(bf16_forward()[0], lp),
+                "plain_vs_f32": bf16_vs_f32(bf16_forward(plain=True)[0], lp)}
+    torch.cuda.synchronize()
+
+    def within(e):
+        return (e["mean_abs"] <= BF16_MEAN_FACTOR * e_p["mean_abs"]
+                and e["argmax_agreement"]
+                >= e_p["argmax_agreement"] - MOE_ARGMAX_SLACK)
+
+    gates["bf16_routes"] = bf16_routes == {"wgmma": cfg.n_layers,
+                                           "splitkv": 0, "simt": 0}
+    gates["layer0_attention"] = layer0["ok"]
+    gates["bf16_logits"] = bool(torch.isfinite(lk16).all()) and within(e_k)
+    gates["control_caught"] = not (within(e_c) and layer0_control["ok"])
+    del lk16, lp16, lc16, lp, pin
+
+    # The f32 gate on simt, cut to MOE_F32_LAYERS layers (views of the
+    # stacked weights; f32 activations).
+    cfg2 = dataclasses.replace(cfg32, n_layers=MOE_F32_LAYERS)
+    p2 = dict(params, blocks={"pos0": tree_slice(params["blocks"]["pos0"],
+                                                 MOE_F32_LAYERS)})
+    fa.reset_launches()
+    with torch.no_grad():
+        lk = forward(cfg2, p2, toks)[0]
+        simt_launches = fa.flash_attention_bshd.route_launches["simt"]
+        lp2 = forward(cfg2, p2, toks, plain_attention=True)[0]
+    torch.cuda.synchronize()
+    diff, scale = float((lk - lp2).abs().max()), float(lp2.abs().max())
+    gates["f32_simt"] = (bool(torch.isfinite(lk).all())
+                         and diff <= GATE_REL * scale
+                         and simt_launches == MOE_F32_LAYERS)
+    f32_gate = {"layers": MOE_F32_LAYERS, "batch": 1, "seq": MOE_GATE_LEN,
+                "simt_launches": simt_launches, "max_abs_diff": diff,
+                "max_abs_logit": scale, "limit": GATE_REL * scale,
+                "argmax_agreement":
+                    float((lk.argmax(-1) == lp2.argmax(-1)).double().mean())}
+    del params, p2, lk, lp2
+    torch.cuda.empty_cache()
+
+    ok = all(gates.values())
+    emit("moe_serve", ok=ok, nvidia_smi=smi, gates=gates, args=MOE_SERVE_ARGS,
+         arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.resolved_head_dim,
+         experts=[cfg.moe.n_routed, cfg.moe.top_k, cfg.moe.n_shared,
+                  cfg.moe.d_ff_expert], vocab=cfg.vocab,
+         params=cfg.param_count(), param_bytes=param_bytes,
+         prefills=prefills, decode_steps=steps,
+         route_launches=route_launches, route_launches_expected=want_routes,
+         ttl_scan_launches=ttl_launches,
+         prefill_ms=[1e3 * x for x in prefill_s],
+         decode_ms_per_step=1e3 * decode_s / steps,
+         tokens_per_s=n_tok / (sum(prefill_s) + decode_s), wall_s=wall,
+         peak_memory_bytes=peak, tier_stats=tier_stats,
+         tier_payload_unchanged=payload_ok,
+         reused_prefix_token_agreement=reuse_agree,
+         moe_prefill_capacity=cap,
+         moe_prefill_drops={
+             "per_prompt_layer_sequence": drops,
+             "per_layer_total": [sum(sum(c[i]) for c in drops)
+                                 for i in range(cfg.n_layers)],
+             "pairs_per_prompt_layer": args.batch * args.prompt_len
+             * cfg.moe.top_k},
+         traced_hit_request=prof,
+         kernel_vs_plain={
+             "batch": 1, "seq": MOE_GATE_LEN, "route_launches": bf16_routes,
+             "routing": "pinned to the f32 run's", "layer0_attention": layer0,
+             "kernel_vs_f32": e_k, "plain_vs_f32": e_p,
+             "limits": {"mean_abs": BF16_MEAN_FACTOR * e_p["mean_abs"],
+                        "argmax_agreement":
+                            e_p["argmax_agreement"] - MOE_ARGMAX_SLACK},
+             "control": {"defect": "the last 64 keys left out of layer 0's "
+                                   "attention call",
+                         "vs_f32": e_c, "caught_by_logits": not within(e_c),
+                         "layer0_attention": layer0_control},
+             "unpinned (recorded)": unpinned},
+         f32_gate=f32_gate)
+    if not ok:
+        raise SystemExit("MoE serving path check failed: "
+                         + ", ".join(k for k, v in gates.items() if not v))
+    return {"routes": route_launches, "simt_gate": simt_launches}
+
+
+def tree_slice(tree, n: int):
+    """The first ``n`` layers of a stacked tree (views)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t[:n], tree)
+
+
+# -- the other mixers: MLA, Mamba, RWKV6 ---------------------------------------
+
+#: (arch, layers kept, plain attention in prefill).  deepseek keeps its dense
+#: prefix layer and 2 MLA / MoE layers, and its MLA prefill (Dk 192 != Dv
+#: 128) takes the plain attention: no flash route computes it (ROADMAP.md
+#: Queue 1 item 14).  jamba keeps one repeat of its 8-layer pattern (62.1 B
+#: parameters do not fit one card); rwkv6 runs at full depth.  Weights are
+#: drawn ``per_layer`` (see ``init_params``): with the reference's fan-in
+#: (the layer count) one or two repeats leave std-1 weights, and deepseek's
+#: bf16 logits came out all zero (the final norm's fp32 square overflows).
+MIXER_RUNS = [("deepseek-v2-lite-16b", 3, True),
+              ("jamba-v0.1-52b", 8, False),
+              ("rwkv6-3b", 32, False)]
+MIXER_BATCH, MIXER_PROMPT, MIXER_STEPS = 2, 1024, 8
+#: A decode step's logits against a full forward of the extended sequence,
+#: with f32 activations on the same bf16 weights (exact), on the first
+#: MIXER_CHECK_LAYERS layers: each held row's largest error at most
+#: MIXER_TOL of its largest |logit|.  A row is held where the two compute
+#: the same function: every MoE layer dropped as many of that row's pairs
+#: in the full forward as in the prefill (the new token kept, the prefix's
+#: drops unchanged), and for RWKV6 the step opens a chunk (inside one, the
+#: chunked forward rounds its intra-chunk scores to bf16, as the reference
+#: does, and the decode step does not).  The depth cut: a random-init RWKV6
+#: stack amplifies the two paths' rounding layer by layer (its token shift
+#: subtracts nearly equal hidden states), smoothly, to ~1 % after 8 layers
+#: and past 50 % after 32 (``scripts/rwkv_decode_drift.py``).
+MIXER_TOL = 2.0 ** -4
+MIXER_CHECK_LAYERS = 8
+#: After the bf16 decode steps, the first layer's caches (written in place
+#: into views of the stack) against those of a bf16 prefill of the whole
+#: sequence, whose layer-0 inputs are the same: each leaf within this share
+#: of its largest |value|.  A cache left stale by a step is off by O(1).
+LAYER0_CACHE_TOL = 2.0 ** -5
+#: The reduced configs, f32, card against the port on the CPU.
+REDUCED_TOL = 1e-4
+REDUCED_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
+                 "rwkv6-3b")
+
+
+def decode_steps(cfg, params, toks, plain: bool):
+    """Prefill ``MIXER_PROMPT`` tokens (each MoE call's drops per row
+    counted), grow the caches, decode ``MIXER_STEPS`` more; returns
+    (prefill logits, each step's last logits, the caches, per-call drops,
+    prefill s, decode s)."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.serve import grow_cache
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with MoERoutes() as rd:
+            logits, caches, _ = forward(cfg, params, toks[:, :MIXER_PROMPT],
+                                        mode="prefill", plain_attention=plain)
+        caches = grow_cache(cfg, caches, MIXER_PROMPT + MIXER_STEPS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = []
+        for j in range(MIXER_STEPS):
+            pos = MIXER_PROMPT + j
+            dec.append(forward(cfg, params, toks[:, pos:pos + 1],
+                               mode="decode", caches=caches, pos=pos)[0][:, -1])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return logits, dec, caches, rd.drops(), t1 - t0, t2 - t1
+
+
+def layer0_caches(caches):
+    """The first layer's cache leaves (a prefix layer's, or repeat 0 of
+    pattern position 0)."""
+    layer = (caches["prefix"]["layer0"] if caches["prefix"]
+             else {k: v[0] for k, v in caches["blocks"]["pos0"].items()})
+    return layer
+
+
+def mixer_run(arch: str, n_layers: int, plain: bool, dev) -> tuple:
+    """The bf16 prefill and decode steps (times, launches, finite, layer-0
+    caches against a prefill of the whole sequence), then the same in f32
+    activations, each step's logits held to a full forward of the
+    extended sequence where the two compute the same function."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import forward, init_params
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         per_layer=True)
+    toks = torch.randint(0, cfg.vocab, (MIXER_BATCH, MIXER_PROMPT + MIXER_STEPS),
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+    n_attn = sum(s.mixer in ("attn", "swa") for s in cfg.layers())
+    n = MIXER_PROMPT + MIXER_STEPS
+
+    # bf16, the main path: prefill and decode on the kernels.
+    fa.reset_launches()
+    logits, dec, caches, drops16, prefill_s, decode_s = decode_steps(
+        cfg, params, toks, plain)
+    routes = dict(fa.flash_attention_bshd.route_launches)
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(d).all()) for d in dec)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        whole = forward(cfg, params, toks, mode="prefill",
+                        plain_attention=plain)[1]
+    cache_err = {}
+    for key, got in layer0_caches(caches).items():
+        want = layer0_caches(whole)[key]
+        if key in ("ckv", "krope"):        # the rows the decode steps wrote
+            got, want = got[:, MIXER_PROMPT:n], want[:, MIXER_PROMPT:n]
+        cache_err[key] = float((got.float() - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1e-30)
+    del logits, caches, whole
+
+    # f32 activations on the same weights, the first MIXER_CHECK_LAYERS
+    # layers: decode against full forwards.
+    n_chk = min(n_layers, MIXER_CHECK_LAYERS)
+    reps = (n_chk - len(cfg.prefix)) // len(cfg.pattern)
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32", n_layers=n_chk)
+    p32 = dict(params, blocks={k: tree_slice(v, reps)
+                               for k, v in params["blocks"].items()})
+    _lg, dec32, _c, drops32, _ps, _ds = decode_steps(cfg32, p32, toks, plain)
+    del _lg, _c
+    steps = []
+    for j in range(MIXER_STEPS):
+        with torch.no_grad(), MoERoutes() as rd:
+            full = forward(cfg32, p32, toks[:, :MIXER_PROMPT + j + 1],
+                           plain_attention=plain)[0][:, -1]
+        full_drops = rd.drops()
+        chunk_start = (cfg.rwkv is None
+                       or (MIXER_PROMPT + j) % cfg.rwkv.chunk == 0)
+        rows = []
+        for b in range(MIXER_BATCH):
+            err = float((dec32[j][b] - full[b]).abs().max())
+            scale = float(full[b].abs().max())
+            held = chunk_start and all(f[b] == p[b] for f, p in
+                                       zip(full_drops, drops32))
+            rows.append({"rel_err": err / max(scale, 1e-30), "scale": scale,
+                         "held": held,
+                         "new_token_or_prefix_drops": sum(f[b] - p[b] for f, p
+                                                          in zip(full_drops,
+                                                                 drops32)),
+                         "argmax_agree": bool(dec32[j][b].argmax()
+                                              == full[b].argmax()),
+                         "ok": (not held) or err <= MIXER_TOL * scale})
+        steps.append(rows)
+        finite = finite and bool(torch.isfinite(full).all())
+    routes32 = dict(fa.flash_attention_bshd.route_launches)
+    want_routes = {"wgmma": n_attn, "splitkv": n_attn * MIXER_STEPS, "simt": 0}
+    gates = {"finite": finite,
+             "logits_not_all_zero": all(r["scale"] > 0 for s in steps
+                                        for r in s),
+             "route_launches": routes == want_routes,
+             "layer0_caches": max(cache_err.values()) <= LAYER0_CACHE_TOL,
+             "decode_vs_full_f32": all(r["ok"] for s in steps for r in s)}
+    held = [r for s in steps for r in s if r["held"]]
+    out = {"arch": arch, "layers": n_layers, "plain_attention_prefill": plain,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "batch": MIXER_BATCH, "prompt": MIXER_PROMPT, "steps": MIXER_STEPS,
+           "gates": gates, "route_launches": routes,
+           "route_launches_expected": want_routes,
+           "route_launches_after_main_path": {k: routes32[k] - routes[k]
+                                        for k in routes},
+           "prefill_drops_per_row_bf16": [sum(c[b] for c in drops16)
+                                          for b in range(MIXER_BATCH)],
+           "prefill_drops_per_row_f32": [sum(c[b] for c in drops32)
+                                         for b in range(MIXER_BATCH)],
+           "pairs_per_row": MIXER_PROMPT * (cfg.moe.top_k if cfg.moe else 0)
+           * sum(s.mlp == "moe" for s in cfg.layers()),
+           "layer0_cache_rel_err": cache_err, "f32_check_layers": n_chk,
+           "rows_held": len(held), "rows_total": MIXER_STEPS * MIXER_BATCH,
+           "max_rel_err_held": max([r["rel_err"] for r in held], default=None),
+           "max_rel_err_all": max(r["rel_err"] for s in steps for r in s),
+           "argmax_agreement_f32": sum(r["argmax_agree"] for s in steps
+                                       for r in s) / (MIXER_STEPS * MIXER_BATCH),
+           "steps_f32": steps, "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_step": 1e3 * decode_s / MIXER_STEPS,
+           "peak_memory_bytes": peak}
+    del params, p32, dec, dec32
+    torch.cuda.empty_cache()
+    return out, routes
+
+
+def reduced_card_vs_cpu(arch: str, dev) -> tuple:
+    """The reduced config in f32 on the card and on the CPU from the same
+    parameters (drawn ``per_layer``: at one repeat the reference's fan-in
+    leaves std-1 weights and activations of ~1e9, whose rounding the stack
+    amplifies past the limit) and tokens: train and prefill logits, three decode steps'
+    logits, and the caches after them, each within REDUCED_TOL of its
+    scale.  Attention on the card runs on simt (head dim 8 padded to 64),
+    deepseek's MLA prefill on the plain attention."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import forward, init_params
+    from repro_torch.serve import grow_cache
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    cfg = get_config(arch).reduced()
+    plain = cfg.mla is not None
+    p_cpu = init_params(torch.Generator().manual_seed(1), cfg, device="cpu",
+                        per_layer=True)
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    rng = np.random.default_rng(len(arch))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 19)).astype(np.int64))
+    errs = {}
+
+    def run(params, device):
+        t = toks.to(device)
+        out = {}
+        with torch.no_grad():
+            out["train"] = forward(cfg, params, t[:, :16],
+                                   plain_attention=plain)[0]
+            lg, caches, _ = forward(cfg, params, t[:, :16], mode="prefill",
+                                    plain_attention=plain)
+            out["prefill"] = lg
+            caches = grow_cache(cfg, caches, 24)
+            for j in range(3):
+                out[f"decode{j}"] = forward(cfg, params, t[:, 16 + j:17 + j],
+                                            mode="decode", caches=caches,
+                                            pos=16 + j)[0]
+        out.update({"cache/" + "/".join(p): x
+                    for p, x in leaves_with_path(caches)})
+        return out
+
+    fa.reset_launches()
+    got = run(p_dev, dev)
+    routes = dict(fa.flash_attention_bshd.route_launches)
+    want = run(p_cpu, torch.device("cpu"))
+    for key, w in want.items():
+        g = got[key].cpu().float()
+        errs[key] = float((g - w.float()).abs().max()) / max(
+            float(w.float().abs().max()), 1e-30)
+    n_attn = sum(s.mixer in ("attn", "swa") for s in cfg.layers())
+    want_routes = {"wgmma": 0, "splitkv": 0, "simt": n_attn * 5}
+    ok = (max(errs.values()) <= REDUCED_TOL and routes == want_routes
+          and all(bool(torch.isfinite(x).all()) for x in got.values()))
+    return ({"arch": cfg.name, "plain_attention": plain, "ok": ok,
+             "max_rel_err": max(errs.values()), "rel_err": errs,
+             "route_launches": routes, "route_launches_expected": want_routes},
+            routes)
+
+
+def phase_mixers(dev, smi: str) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs, routes = [], {"wgmma": 0, "splitkv": 0, "simt": 0}
+    for arch, n_layers, plain in MIXER_RUNS:
+        row, r = mixer_run(arch, n_layers, plain, dev)
+        runs.append(row)
+        routes = {k: routes[k] + r[k] for k in routes}
+    reduced = []
+    for arch in REDUCED_ARCHS:
+        row, r = reduced_card_vs_cpu(arch, dev)
+        reduced.append(row)
+        routes = {k: routes[k] + r[k] for k in routes}
+
+    # MLA prefill on the card raises, naming the queue item, unless the
+    # caller asks for the plain attention.
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.zeros((1, 8), dtype=torch.long, device=dev)
+    try:
+        with torch.no_grad():
+            forward(cfg, params, toks, mode="prefill")
+        mla_refusal = "no error"
+    except NotImplementedError as exc:
+        mla_refusal = str(exc)
+    gates = {r["arch"]: all(r["gates"].values()) for r in runs}
+    gates.update({f"reduced {r['arch']}": r["ok"] for r in reduced})
+    gates["mla_prefill_raises_item_14"] = "Queue 1 item 14" in mla_refusal
+    ok = all(gates.values())
+    emit("mixers", ok=ok, nvidia_smi=smi, gates=gates, runs=runs,
+         mixer_tol=MIXER_TOL, mixer_check_layers=MIXER_CHECK_LAYERS,
+         layer0_cache_tol=LAYER0_CACHE_TOL,
+         reduced=reduced, reduced_tol=REDUCED_TOL,
+         mla_prefill_without_plain=mla_refusal, route_launches=routes)
+    if not ok:
+        raise SystemExit("mixer check failed: "
+                         + ", ".join(k for k, v in gates.items() if not v))
+    return routes
+
 def main() -> int:
     try:
         import torch
@@ -2334,9 +2942,18 @@ def main() -> int:
     serve = phase_serve(dev)
     train = phase_train(dev, smi)
     encode = phase_encode(dev, smi)
+    moe = phase_moe_serve(dev, smi)
+    mixers = phase_mixers(dev, smi)
 
     main_t, scale_t = kern["timings"]
     t = flash["timings"]
+
+    def moe_rows(*keys):
+        """The flash timing rows at qwen2-moe-a2.7b's calls."""
+        return {k: {f: t[k].get(f) for f in (
+            "case", "ms", "device_us", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "cold_ms", "library_cold_ms") if f in t[k]}
+            for k in keys}
 
     def flash_entry(name, route, row, launches, **extra):
         return {"name": name, "route": "cuda", "source": ROUTE_SOURCES[route],
@@ -2374,28 +2991,42 @@ def main() -> int:
     },
         flash_entry("flash_attention_wgmma", "wgmma", t["wgmma_prefill"],
                     serve["routes"]["wgmma"] + train["wgmma_eval"]
-                    + encode["wgmma"],
+                    + encode["wgmma"] + moe["routes"]["wgmma"]
+                    + mixers["wgmma"],
                     launches_by_path={"serve": serve["routes"]["wgmma"],
                                       "train_eval": train["wgmma_eval"],
-                                      "encode": encode["wgmma"]},
+                                      "encode": encode["wgmma"],
+                                      "moe_serve": moe["routes"]["wgmma"],
+                                      "mixers": mixers["wgmma"]},
+                    qwen2_moe=moe_rows("wgmma_moe_prefill"),
                     hubert={k: {f: t[k].get(f) for f in (
                         "case", "ms", "device_us", "plain_ms", "library_ms",
                         "bound_ms", "bound_by")}
                         for k in ("wgmma_hubert", "wgmma_hubert_1000")}),
         flash_entry("flash_attention_splitkv", "splitkv", t["splitkv_decode"],
-                    serve["routes"]["splitkv"],
+                    serve["routes"]["splitkv"] + moe["routes"]["splitkv"]
+                    + mixers["splitkv"],
+                    launches_by_path={"serve": serve["routes"]["splitkv"],
+                                      "moe_serve": moe["routes"]["splitkv"],
+                                      "mixers": mixers["splitkv"]},
+                    qwen2_moe=moe_rows("splitkv_moe_decode"),
                     decode_8k={k: t["splitkv_decode_8k"][k] for k in
                                ("case", "ms", "device_us", "bound_ms",
                                 "library_ms")}),
         flash_entry("flash_attention", "simt", t["simt_f32"],
-                    serve["simt_gate"] + train["simt_launcher_serve"],
+                    serve["simt_gate"] + train["simt_launcher_serve"]
+                    + moe["simt_gate"] + mixers["simt"],
                     launches_by_path={
                         "serve_f32_gate": serve["simt_gate"],
                         "launcher_serve_defaults":
-                            train["simt_launcher_serve"]},
-                    launches_note="the f32 gate's forward and the serve "
-                                  "launcher's reduced defaults (head dim 8 "
-                                  "padded to 64); it takes no bf16 call"),
+                            train["simt_launcher_serve"],
+                        "moe_serve_f32_gate": moe["simt_gate"],
+                        "mixers_reduced": mixers["simt"]},
+                    launches_note="the f32 gates' forwards, the serve "
+                                  "launcher's reduced defaults and the "
+                                  "reduced configs' card-vs-CPU runs (head "
+                                  "dim 8 padded to 64); it takes no bf16 "
+                                  "call"),
     ]}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({**RESULT, "summary": summary}, indent=1))

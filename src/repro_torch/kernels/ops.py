@@ -282,3 +282,10 @@ def flash_attention(
 
     return swap(flash_attention_bshd(swap(q), swap(k), swap(v),
                                      causal=causal, q_offset=q_offset))
+
+
+def rwkv6_scan(r, k, v, w, u, state=None):
+    """RWKV6 recurrence: the plain scan :func:`ref.rwkv6_ref`, where the
+    tensors lie.  The reference has no kernel for it either (a
+    ``lax.scan``): the recurrence is bandwidth-bound."""
+    return ref.rwkv6_ref(r, k, v, w, u, state)

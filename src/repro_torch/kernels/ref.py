@@ -3,7 +3,9 @@
 Each function here computes what one hand-written kernel computes, in the
 most obvious way -- no tiling, no streaming -- so it is easy to audit.  The
 TTL-scan kernel's is in two parts: the surface (:func:`ttl_cost_ref`) and
-the decision taken from it (:func:`ttl_decision_ref`).  The kernel wrappers
+the decision taken from it (:func:`ttl_decision_ref`).  :func:`rwkv6_ref`
+is the reference's oracle of the RWKV6 recurrence, which has no kernel.
+The kernel wrappers
 use them for tensors that lie on the CPU, the CPU tests hold them against
 the JAX reference, and ``chip_smoke.py`` holds each kernel against its plain
 version on the card.
@@ -118,3 +120,30 @@ def mha_ref(
         logits = logits.masked_fill(kpos > qpos, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def rwkv6_ref(
+    r: torch.Tensor,             # [B, H, T, K] receptance
+    k: torch.Tensor,             # [B, H, T, K] key
+    v: torch.Tensor,             # [B, H, T, V] value
+    w: torch.Tensor,             # [B, H, T, K] per-step decay (0 < w < 1)
+    u: torch.Tensor,             # [H, K]       bonus for the current token
+    state: torch.Tensor | None = None,   # [B, H, K, V]
+) -> tuple:
+    """Finch recurrence (arXiv:2404.05892), one step at a time in fp32:
+        S_t = diag(w_t) S_{t-1} + k_t^T v_t
+        o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+    Returns (out [B,H,T,V], final state [B,H,K,V]).  No kernel computes
+    it, in either package: the recurrence is a plain scan.
+    """
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    r, k, v, w, u = (x.float() for x in (r, k, v, w, u))
+    s = (r.new_zeros((B, H, K, V)) if state is None else state.float())
+    outs = []
+    for t in range(T):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]      # [B,H,K,V]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t],
+                                 s + u[None, :, :, None] * kv))
+        s = w[:, :, t, :, None] * s + kv
+    return torch.stack(outs, dim=2), s

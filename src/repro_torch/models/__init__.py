@@ -1,6 +1,6 @@
-"""The model stack for the dense attention families (the port of
-``repro.models``): llama-style decoders, sliding-window layers, M-RoPE and
-encoder-only stacks.  MLA, MoE, Mamba and RWKV6 wait for a later slice."""
+"""The model stack (the port of ``repro.models``): llama-style decoders,
+sliding-window layers, M-RoPE, encoder-only stacks, MLA, MoE, Mamba and
+RWKV6."""
 
 from .transformer import (  # noqa: F401
     cache_schema,

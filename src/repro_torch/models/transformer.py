@@ -1,9 +1,11 @@
-"""The generic transformer stack, for the dense attention families.
+"""The generic heterogeneous transformer stack.
 
-The port of ``repro.models.transformer``: a config's layer *pattern* is
-repeated ``R`` times over stacked per-repeat parameters (leading layer axis),
-with irregular leading layers in an unstacked ``prefix``.  The reference's
-``lax.scan`` over the stack becomes a Python loop over the layer axis.
+The port of ``repro.models.transformer``: one implementation serves all ten
+architectures.  A config's layer *pattern* (attention / SWA / MLA / Mamba /
+RWKV6 mixers x dense / MoE / RWKV channel-mix MLPs) is repeated ``R`` times
+over stacked per-repeat parameters (leading layer axis), with irregular
+leading layers in an unstacked ``prefix``.  The reference's ``lax.scan``
+over the stack becomes a Python loop over the layer axis.
 
 The reference's three lowering modes share the code path:
   train   -- full sequence, loss-ready logits; under grad each block is
@@ -12,8 +14,9 @@ The reference's three lowering modes share the code path:
              ``remat_policy="dots"``, which saves the products, is
              recomputed in full here);
   prefill -- full sequence, returns the decode cache;
-  decode  -- one token against the cache, written in place at ``pos``
-             (see :func:`repro_torch.models.layers.apply_attn`).
+  decode  -- one token against the cache (KV, MLA latent, Mamba conv + ssm
+             state or RWKV state by layer kind), written in place (see
+             :mod:`repro_torch.models.layers`).
 
 :func:`loss_fn` is the reference's chunked fused lm-head + cross-entropy.
 """
@@ -30,27 +33,40 @@ from . import layers as L
 
 Params = Dict[str, Any]
 
-NOT_PORTED = ("MLA, MoE, Mamba and RWKV6 layers are not ported yet "
-              "(ROADMAP.md Queue 1 item 13)")
-
-
-def _require_ported(spec) -> None:
-    if spec.mixer not in ("attn", "swa") or spec.mlp not in L.MLP_KINDS:
-        raise NotImplementedError(f"{spec.mixer} / {spec.mlp}: {NOT_PORTED}")
-
 
 # ---------------------------------------------------------------------------
 # Schemas
 # ---------------------------------------------------------------------------
 
+_MIXER_SCHEMAS = {
+    "attn": L.attn_schema,
+    "swa": L.attn_schema,
+    "mla": L.mla_schema,
+    "mamba": L.mamba_schema,
+    "rwkv6": L.rwkv6_schema,
+}
+_MIXER_CACHE_SCHEMAS = {
+    "attn": L.attn_cache_schema,
+    "swa": L.attn_cache_schema,
+    "mla": L.mla_cache_schema,
+    "mamba": L.mamba_cache_schema,
+    "rwkv6": L.rwkv6_cache_schema,
+}
+
+
 def _layer_schema(cfg, spec) -> Dict[str, Dict[str, L.Spec]]:
-    _require_ported(spec)
-    return {
+    s: Dict[str, Dict[str, L.Spec]] = {
         "norm1": L.norm_schema(cfg.d_model, cfg.norm),
-        "mixer": L.attn_schema(cfg),
+        "mixer": _MIXER_SCHEMAS[spec.mixer](cfg),
         "norm2": L.norm_schema(cfg.d_model, cfg.norm),
-        "mlp": L.mlp_schema(cfg, spec.mlp),
     }
+    if spec.mlp == "moe":
+        s["mlp"] = L.moe_schema(cfg)
+    elif spec.mlp == "rwkv_ffn":
+        s["mlp"] = L.rwkv_ffn_schema(cfg)
+    else:
+        s["mlp"] = L.mlp_schema(cfg, spec.mlp)
+    return s
 
 
 def _map_specs(fn, tree, path=()):
@@ -87,32 +103,60 @@ def model_schema(cfg) -> Dict[str, Any]:
     return s
 
 
+def _layer_cache_schema(cfg, spec, batch: int, max_len: int):
+    sch = _MIXER_CACHE_SCHEMAS[spec.mixer](cfg, spec, batch, max_len)
+    if spec.mixer == "rwkv6":       # the channel mix's token shift
+        sch["shift_ffn"] = L.Spec((batch, 1, cfg.d_model),
+                                  ("batch", None, None), "zeros")
+    return sch
+
+
 def cache_schema(cfg, batch: int, max_len: int) -> Dict[str, Any]:
     r = cfg.pattern_repeats()
     out: Dict[str, Any] = {"prefix": {}, "blocks": {}}
     for i, spec in enumerate(cfg.prefix):
-        _require_ported(spec)
-        out["prefix"][f"layer{i}"] = L.attn_cache_schema(cfg, spec, batch, max_len)
+        out["prefix"][f"layer{i}"] = _layer_cache_schema(cfg, spec, batch,
+                                                         max_len)
     for i, spec in enumerate(cfg.pattern):
-        _require_ported(spec)
         out["blocks"][f"pos{i}"] = _stack_schema(
-            L.attn_cache_schema(cfg, spec, batch, max_len), r)
+            _layer_cache_schema(cfg, spec, batch, max_len), r)
     return out
 
 
-def init_params(gen: torch.Generator, cfg, device=None) -> Params:
+def init_params(gen: torch.Generator, cfg, device=None,
+                per_layer: bool = False) -> Params:
     """Parameters in ``cfg.param_dtype`` drawn from ``gen`` on ``device``
-    (default: the generator's device), leaf by leaf in sorted-path order."""
+    (default: the generator's device), leaf by leaf in sorted-path order.
+
+    As in the reference, a leaf's fan-in is its first axis, which for a
+    stacked leaf is the layer count: its draws have std ``scale /
+    sqrt(repeats)``, independent of the width.  At a depth cut to one or
+    two repeats that leaves weights of std ~1, whose bf16 activations
+    overflow fp32 in the next norm.  ``per_layer`` draws each stacked leaf
+    at its own layer's fan-in (its second axis), as an unstacked layer of
+    that shape is drawn."""
     dtype = L.dtype_of(cfg.param_dtype)
     device = gen.device if device is None else torch.device(device)
-    return _map_specs(lambda _p, sp: L.init_leaf(gen, sp, dtype, device),
-                      model_schema(cfg))
+
+    def draw(path, sp):
+        if per_layer and path[0] == "blocks":
+            sp = L.Spec(sp.shape, sp.axes, sp.init,
+                        sp.scale * (sp.shape[0] / sp.shape[1]) ** 0.5)
+        return L.init_leaf(gen, sp, dtype, device)
+
+    return _map_specs(draw, model_schema(cfg))
+
+
+def _cache_leaf_dtype(name: str, cfg) -> torch.dtype:
+    # Recurrent states (Mamba ssm, RWKV wkv state) accumulate in fp32; KV
+    # caches and token-shift states live in the activation dtype.
+    return L.F32 if name in ("ssm", "state") else L.dtype_of(cfg.act_dtype)
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Params:
-    dtype = L.dtype_of(cfg.act_dtype)
     return _map_specs(
-        lambda _p, sp: torch.zeros(sp.shape, dtype=dtype, device=device),
+        lambda path, sp: torch.zeros(sp.shape, dtype=_cache_leaf_dtype(
+            path[-1], cfg), device=device),
         cache_schema(cfg, batch, max_len))
 
 
@@ -159,15 +203,43 @@ def params_from_reference(tree, cfg, device="cuda", dtype=None) -> Params:
 
 def _apply_block(cfg, spec, p, x, positions, mode, cache, pos,
                  plain_attention=False):
-    """Pre-norm residual block; returns (x, new_cache)."""
-    _require_ported(spec)
+    """Pre-norm residual block; returns (x, new_cache, aux_loss), the aux
+    loss None for a layer without MoE (the reference's zero)."""
     h = L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
-    y, new_cache = L.apply_attn(cfg, p["mixer"], h, positions, spec, mode=mode,
-                                cache=cache, pos=pos,
-                                plain_attention=plain_attention)
+    if spec.mixer in ("attn", "swa"):
+        y, new_cache = L.apply_attn(cfg, p["mixer"], h, positions, spec,
+                                    mode=mode, cache=cache, pos=pos,
+                                    plain_attention=plain_attention)
+    elif spec.mixer == "mla":
+        y, new_cache = L.apply_mla(cfg, p["mixer"], h, positions, spec,
+                                   mode=mode, cache=cache, pos=pos,
+                                   plain_attention=plain_attention)
+    elif spec.mixer == "mamba":
+        y, new_cache = L.apply_mamba(cfg, p["mixer"], h, mode=mode,
+                                     cache=cache, pos=pos)
+    elif spec.mixer == "rwkv6":
+        mixer_cache = cache and {k: v for k, v in cache.items()
+                                 if k != "shift_ffn"}
+        y, new_cache = L.apply_rwkv6(cfg, p["mixer"], h, mode=mode,
+                                     cache=mixer_cache, pos=pos)
+    else:
+        raise KeyError(spec.mixer)
     x = x + y
+
+    aux = None
     h2 = L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
-    return x + L.apply_mlp(cfg, p["mlp"], h2, spec.mlp), new_cache
+    if spec.mlp == "moe":
+        y2, aux = L.apply_moe(cfg, p["mlp"], h2)
+    elif spec.mlp == "rwkv_ffn":
+        shift_prev = cache["shift_ffn"] if mode == "decode" else None
+        y2 = L.apply_rwkv_ffn(cfg, p["mlp"], h2, shift_prev=shift_prev)
+        if mode == "decode":
+            cache["shift_ffn"].copy_(h2)
+        elif mode == "prefill":
+            new_cache = dict(new_cache, shift_ffn=h2[:, -1:])
+    else:
+        y2 = L.apply_mlp(cfg, p["mlp"], h2, spec.mlp)
+    return x + y2, new_cache, aux
 
 
 def _layer(tree, r: int):
@@ -190,7 +262,8 @@ def forward(
 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (logits [B, S, vocab], caches|None, aux_loss); with
     ``return_hidden`` the first element is the final normed hidden state.
-    ``aux_loss`` is 0: the dense layers have none (MoE's waits with MoE).
+    ``aux_loss`` (fp32) sums the MoE layers' load-balance losses, prefix
+    first, then the stack in layer order, as the reference's scan does.
 
     Decode writes into ``caches`` in place and returns the same tree;
     prefill returns new, stacked caches.  ``plain_attention`` takes the
@@ -219,11 +292,14 @@ def forward(
             return checkpoint(plain_block, spec, p, x, cache,
                               use_reentrant=False)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Dict[str, Any] = {"prefix": {}, "blocks": {}}
     for i, spec in enumerate(cfg.prefix):
         name = f"layer{i}"
         c_in = caches["prefix"][name] if caches is not None else None
-        x, c_out = block(spec, params["prefix"][name], x, c_in)
+        x, c_out, a = block(spec, params["prefix"][name], x, c_in)
+        if a is not None:
+            aux = aux + a
         if c_out is not None:
             new_caches["prefix"][name] = c_out
 
@@ -234,7 +310,10 @@ def forward(
             name = f"pos{j}"
             c_in = (_layer(caches["blocks"][name], rep)
                     if caches is not None else None)
-            x, c_out = block(spec, _layer(params["blocks"][name], rep), x, c_in)
+            x, c_out, a = block(spec, _layer(params["blocks"][name], rep), x,
+                                c_in)
+            if a is not None:
+                aux = aux + a
             outs[j].append(c_out)
     if mode == "prefill":
         for j, per_rep in enumerate(outs):
@@ -242,7 +321,6 @@ def forward(
                 k: torch.stack([c[k] for c in per_rep]) for k in per_rep[0]}
 
     x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, None, aux
     logits = _lm_head(cfg, params, x)

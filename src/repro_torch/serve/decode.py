@@ -1,10 +1,12 @@
-"""Serving steps: prefill + single-token decode over the KV caches.
+"""Serving steps: prefill + single-token decode over heterogeneous caches.
 
-The port of ``repro.serve.decode`` for the dense attention families: one new
-token against a ``max_len``-deep cache (KV ring buffers for SWA layers).
-Positions are Python ints.  :func:`serve_step` writes the new token's K/V
-into the caches it is given and returns them; the reference returns updated
-copies.  A caller that keeps a cache for later reuse decodes on a clone.
+The port of ``repro.serve.decode``: one new token against a
+``max_len``-deep cache (KV ring buffers for SWA, MLA latent caches, Mamba
+conv + ssm states, RWKV wkv states -- whatever the layer pattern dictates).
+Positions are Python ints.  :func:`serve_step` writes the new token's
+caches into the caches it is given and returns them; the reference returns
+updated copies.  A caller that keeps a cache for later reuse decodes on a
+clone.
 """
 
 from __future__ import annotations
@@ -15,14 +17,14 @@ import torch
 
 from ..models import forward, init_cache
 
-#: Rank of each cache leaf that carries a sequence axis, unstacked.
-_BASE_NDIM = {"k": 4, "v": 4}
+#: Rank of each cache leaf that carries a sequence axis (axis 1), unstacked.
+_BASE_NDIM = {"k": 4, "v": 4, "ckv": 3, "krope": 3}
 
 
 def grow_cache(cfg, caches: Dict[str, Any], max_len: int) -> Dict[str, Any]:
     """Pad prefill-built caches along the sequence axis to ``max_len`` so
-    decode can keep appending.  Ring-buffer (SWA) caches pass through
-    unchanged.  The grown caches are new tensors."""
+    decode can keep appending.  Ring-buffer (SWA) and state caches pass
+    through unchanged.  The grown caches are new tensors."""
     out: Dict[str, Any] = {}
     for group, layers in caches.items():
         out[group] = {}

@@ -14,7 +14,19 @@ The two frameworks' transcendentals differ in the last bits (XLA's CPU
 about 1 %), and a random stack amplifies that with depth: gemma3's reduced
 stack grows its activations from ~15 to ~600 in one block.  Whole-stack
 logits and caches are held at tol = 1e-4; the largest seen is gemma3's
-logits at 1.9e-5 of their scale.
+logits at 1.9e-5 of their scale.  One cache is held at the stack's 1e-4
+even block by block: the RWKV6 wkv state sums ``exp(cum_Q - cum_tau) k v``,
+where the cumulative log decays reach a few hundred; XLA's cumsum (an
+associative scan on the CPU) and torch's sequential one differ by an ulp
+of that, ~1.5e-5, and exp turns it into that share of the state.
+
+Two reduced configs are held at :data:`DECODE_TOL` after prefill + decode,
+each for a cause in the reference itself: its own fp32 RWKV6 state after a
+prefill sits about as far from a float64 evaluation of the same chunk
+inputs as the port's does (``test_torch_mixers.py`` holds the port to
+twice the reference's distance), and jamba's reduced stack grows its
+activations to ~1e9, so that one ulp more in its embedding moves the
+reference's own late ssm states by ~1e-4 of their scale.
 """
 
 import jax
@@ -39,13 +51,13 @@ from repro_torch.models import (cache_schema, forward, init_cache, init_params,
 from repro_torch.models import transformer as T
 from repro_torch.serve import prefill, serve_step
 
-#: The configs whose layers this slice covers (attention / SWA mixers,
-#: dense MLPs).
-COVERED = ("llama3.2-1b", "deepseek-coder-33b", "nemotron-4-340b",
-           "gemma3-4b", "hubert-xlarge", "qwen2-vl-7b")
-NOT_COVERED = tuple(a for a in ARCH_NAMES if a not in COVERED)
+#: Every config: attention / SWA / MLA / Mamba / RWKV6 mixers, dense and
+#: MoE MLPs.
+COVERED = ARCH_NAMES
 DECODERS = tuple(a for a in COVERED if not get_config(a).encoder_only)
 BLOCK_TOL, STACK_TOL = 1e-5, 1e-4
+#: Decode logits and caches against the reference (see above).
+DECODE_TOL = {"rwkv6-3b": 5e-4, "jamba-v0.1-52b": 5e-4}
 B, S = 2, 16
 
 
@@ -111,12 +123,6 @@ def test_model_schema_matches_reference(arch, reduced):
     assert cache == want
 
 
-@pytest.mark.parametrize("arch", NOT_COVERED)
-def test_layers_of_a_later_slice_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-        model_schema(get_config(arch).reduced())
-
-
 def test_carrying_parameters_checks_names_and_shapes(carried):
     cfg, rp, _ = carried["llama3.2-1b"]
     tree = jax.tree.map(np.asarray, rp)
@@ -162,10 +168,11 @@ def test_init_params_follows_the_schema():
 def test_forward_matches_reference(carried, arch, mode):
     cfg, rp, tp = carried[arch]
     x = _inputs(cfg, seed=len(arch))
-    want, want_caches, _ = r_forward(cfg, rp, jnp.asarray(x), mode=mode)
+    want, want_caches, want_aux = r_forward(cfg, rp, jnp.asarray(x), mode=mode)
     got, got_caches, aux = forward(cfg, tp, torch.from_numpy(x), mode=mode)
     _close(got, want, STACK_TOL)
-    assert float(aux) == 0.0
+    # the MoE layers' Switch loss; exactly 0 without MoE
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * abs(float(want_aux))
     if mode == "train":
         assert got_caches is None and want_caches is None
         return
@@ -205,14 +212,17 @@ def test_each_block_matches_reference(carried, arch, mode):
                                                          jnp.float32)
     h = np.array(h)
     for i, (spec, rb, tb) in enumerate(_blocks(cfg, rp, tp)):
-        want, want_cache, _ = RT._apply_block(cfg, spec, rb, jnp.asarray(h),
-                                              None, mode, None, None)
-        got, got_cache = T._apply_block(cfg, spec, tb, torch.from_numpy(h),
-                                        None, mode, None, None)
+        want, want_cache, want_aux = RT._apply_block(
+            cfg, spec, rb, jnp.asarray(h), None, mode, None, None)
+        got, got_cache, aux = T._apply_block(cfg, spec, tb, torch.from_numpy(h),
+                                             None, mode, None, None)
         _close(got, want, BLOCK_TOL, f"block {i}")
+        assert (aux is None) == (spec.mlp != "moe")
+        _close(torch.zeros(()) if aux is None else aux, want_aux, BLOCK_TOL,
+               f"block {i} aux")
         for key in (want_cache or {}):
-            _close(got_cache[key], want_cache[key], BLOCK_TOL,
-                   f"block {i} {key}")
+            tol = STACK_TOL if key == "state" else BLOCK_TOL   # see above
+            _close(got_cache[key], want_cache[key], tol, f"block {i} {key}")
         h = np.array(want)
 
 
@@ -245,14 +255,15 @@ def test_decode_matches_full_forward(carried, arch):
     lg2, caches = serve_step(cfg, tp, caches, torch.from_numpy(nxt), pos)
     assert float((full2[:, -1] - lg2).abs().max()) < 2e-3
 
+    tol = DECODE_TOL.get(arch, STACK_TOL)
     r_lg, r_caches, r_pos = r_prefill(cfg, rp, jnp.asarray(toks), max_len=S + 8)
-    _close(lg, r_lg, STACK_TOL)
+    _close(lg, r_lg, tol)
     r_lg2, r_caches = r_serve_step(cfg, rp, r_caches, jnp.asarray(nxt), r_pos)
-    _close(lg2, r_lg2, STACK_TOL)
+    _close(lg2, r_lg2, tol)
     ours, theirs = dict(_flat(caches)), dict(_flat(r_caches))
     assert ours.keys() == theirs.keys()
     for path, t in ours.items():
-        _close(t, theirs[path], STACK_TOL, str(path))
+        _close(t, theirs[path], tol, str(path))
 
 
 def test_plain_attention_is_the_cpu_path(carried):

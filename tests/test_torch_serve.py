@@ -1,6 +1,7 @@
 """The port's serving path against the JAX package's, on the CPU.
 
-Reduced llama3.2-1b with the reference's parameters carried across
+Reduced llama3.2-1b (and, for the serve loop, reduced qwen2-moe-a2.7b and
+rwkv6-3b) with the reference's parameters carried across
 (``params_from_reference``), prompts drawn with numpy from a seed: the
 greedy token streams must be equal, token for token.  The KV tier's
 decisions (TTLs, tiers, moves, stats) must be equal under one injected
@@ -20,7 +21,7 @@ from repro.serve import greedy_generate as r_greedy_generate
 from repro.serve import prefill as r_prefill
 from repro.serve import serve_step as r_serve_step
 from repro.serve.kv_tier import KVTierManager as RKVTierManager
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import params_from_reference
 from repro_torch.serve import greedy_generate
@@ -101,12 +102,54 @@ def test_serve_loop_matches_reference_and_reuses_prefixes(model):
     assert got["decode_steps"] == [args.gen - 1] * 3 + [args.gen] * 3
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "rwkv6-3b"])
+def test_serve_loop_matches_reference_with_moe_and_state_caches(arch):
+    """The serving loop over MoE layers (qwen2-moe) and RWKV state caches
+    (rwkv6) gives the reference loop's tokens, hits included.  A hit
+    re-decodes the last prompt token at ``pos - 1``, as the reference does:
+    a K/V cache takes that rewrite unchanged, but it advances a state cache
+    a second time, and a prefill's MoE may drop pairs its decode keeps, so
+    a hit's tokens need not equal its miss's.  They equal the reference's.
+    """
+    rcfg = r_get_config(arch).reduced()
+    rp = r_init_params(jax.random.PRNGKey(0), rcfg)
+    cfg = get_config(arch).reduced()
+    tp = params_from_reference(jax.tree.map(np.asarray, rp), cfg, device="cpu")
+    args = launch_serve.build_parser().parse_args(
+        ["--arch", arch, "--requests", "6", "--batch", "2", "--prompt-len",
+         "20", "--gen", "8"])
+    prompts = launch_serve.make_prompts(cfg, args)
+    got = launch_serve.serve(cfg, tp, prompts, args.gen,
+                             KVTierManager(device="cpu"), CPU)
+    want, hits = _reference_serve(rcfg, rp, [p.numpy().astype(np.int32)
+                                             for p in prompts], args.gen)
+    assert got["hit"] == hits == [False] * 3 + [True] * 3
+    for g, w in zip(got["tokens"], want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
 def test_launch_serve_runs_on_the_cpu(capsys):
     launch_serve.main(["--device", "cpu", "--reduced", "--requests", "4",
                        "--batch", "2", "--prompt-len", "12", "--gen", "5"])
     out = capsys.readouterr().out
     assert "req 3: hit=yes" in out and "req 2: hit=no" in out
     assert "40 tokens in" in out and "'misses': 3" in out
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_launch_serve_accepts_every_config(arch, capsys):
+    """Every reduced config serves on the CPU through the launcher (misses,
+    then hits); the encoder-only one has no decode loop, as in the
+    reference."""
+    argv = ["--device", "cpu", "--arch", arch, "--requests", "4", "--batch",
+            "2", "--prompt-len", "9", "--gen", "3"]
+    if get_config(arch).encoder_only:
+        with pytest.raises(SystemExit, match="encoder-only"):
+            launch_serve.main(argv)
+        return
+    launch_serve.main(argv)
+    out = capsys.readouterr().out
+    assert "req 3: hit=yes" in out and "24 tokens in" in out
 
 
 def test_launch_serve_flags():
