@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs eleven
+(one nvcc per source for sm_90a, all started together), then runs twelve
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -59,7 +59,17 @@ first that fails:
              L2 flushed, and the 8,192-key decode; simt: the f32 gate's
              shape; both bf16 routes at qwen2-moe-a2.7b's calls too) beside
              the plain version's, the bound and
-             scaled_dot_product_attention's;
+             scaled_dot_product_attention's; and head dims 192 and 256 with
+             the sliding window and the key count: gemma3-4b's windowed
+             prefill (S 2,048, window 1,024), its ring decodes (full and
+             filling) and a global layer's decode below Skv, nemotron-4-340b's
+             prefill and decode (group 12 at D 192), deepseek's MLA prefill
+             (D 192), each on its planned route and each route forced at
+             D 192 / 256 (simt in f32), three more controls (the window's
+             first 64 keys, the last 64 live keys, a window one key
+             narrower in f32), and their times beside the plain version's,
+             the bound (the pairs inside the window and below kv_len) and
+             SDPA's;
   serve      the serving path: ``repro_torch.launch.serve`` at full width
              (llama3.2-1b, bf16, seeded random weights; 6 requests of batch
              4, 1024-token prompts, 32 generated tokens, three distinct
@@ -115,19 +125,35 @@ first that fails:
              largest value (q rounded as the kernel rounds it), and a
              control (64 keys cut from layer 0's call) caught; the f32 gate
              on simt cut to 2 layers;
+  gemma_serve  gemma3-4b through ``repro_torch.launch.serve`` at full width
+             and depth (34 layers, d 2560, 8 / 4 heads of 256, a 1,024-key
+             window on 29 layers, vocab 262,144, bf16, seeded weights): 6
+             requests of B 4 x 2,048-token prompts (the window masks half
+             of each local prefill's keys), 32 generated tokens on rings
+             that wrap; wgmma launches = layers x prefills, splitkv = layers
+             x decode steps, simt none; the model's calls recorded (windowed
+             prefills, ring and global decodes with their kv_len); the
+             tier's caches bit-equal to fresh prefills; a traced hit; bf16
+             logits through the kernels no further from the f32 plain run's
+             than the plain bf16 run's (max 1.5x, mean 1.25x), layer 0 (a
+             local layer, positions past the window) within 2^-5 of each
+             row's largest value on q rounded as the kernel rounds it, and a
+             control (every window one key narrower) caught;
   mixers     deepseek-v2-lite-16b (its dense layer and 2 MLA / MoE layers;
-             MLA prefill on the plain attention), jamba-v0.1-52b (one repeat
-             of its 8-layer pattern; attention on wgmma / splitkv) and
-             rwkv6-3b (32 layers) at full width, weights drawn per layer:
+             MLA prefill on the D 192 wgmma kernel, V zero-padded, held to
+             its plain-attention run by layer 0's call and a control),
+             jamba-v0.1-52b (one repeat of its 8-layer pattern; attention
+             on wgmma / splitkv), rwkv6-3b (32 layers) and nemotron-4-340b
+             (2 of 96 layers, D 192, group 12) at full width, weights drawn
+             per layer:
              a 1,024-token bf16 prefill and 8 decode steps, finite, the
              launches per route, the first layer's caches within 2^-5 of a
              prefill of the whole sequence; in f32 activations on the first
              8 layers each step's logits within 2^-4 of each row's scale of
              a full forward of the extended sequence where both compute the
              same function (drop counts equal, an RWKV6 chunk start); the
-             four reduced configs
-             in f32, card against CPU within 1e-4; MLA prefill on the card
-             without plain attention raising, naming item 14.
+             five reduced configs (gemma3-4b's windows and rings among them)
+             in f32, card against CPU within 1e-4, MLA on the kernel.
 
 Then it prints the per-kernel summary line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -1289,6 +1315,48 @@ FLASH_ROUTE_CASES = [
     ((1, 4, 2, 100, 356, 96, False, 0, "bfloat16"), "wgmma"),
     (HUBERT_ATTN_1000, "wgmma"),
 ]
+#: A case may carry two more fields, (..., dtype, window, kv_len): the
+#: sliding window and the key count of flash_attention_bshd.
+#: gemma3-4b's calls in the gemma_serve phase (B 4, 8 / 4 heads of 256): a
+#: local layer's prefill, whose 1,024-key window masks half the keys of a
+#: 2,048-token prompt; a local layer's decode on its full 1,024-slot ring
+#: at position 2,070 (kv_len = the ring), the same ring before it fills
+#: (position 700); a global layer's decode at 2,070 of its 2,080-slot cache
+#: (kv_len 2,071 < Skv).
+GEMMA_PREFILL = (4, 8, 4, 2048, 2048, 256, True, 0, "bfloat16", 1024, None)
+GEMMA_DECODE_RING = (4, 8, 4, 1, 1024, 256, False, 2070, "bfloat16", None,
+                     1024)
+GEMMA_DECODE_RING_FILLING = (4, 8, 4, 1, 1024, 256, False, 700, "bfloat16",
+                             None, 701)
+GEMMA_DECODE_GLOBAL = (4, 8, 4, 1, 2080, 256, False, 2070, "bfloat16", None,
+                       2071)
+#: nemotron-4-340b's calls in the mixers phase (B 2, 96 / 8 heads of 192:
+#: a group of 12), prefill and a decode step at 1,031 of its 1,032 slots.
+NEMOTRON_PREFILL = (2, 96, 8, 1024, 1024, 192, True, 0, "bfloat16")
+NEMOTRON_DECODE = (2, 96, 8, 1, 1032, 192, False, 1031, "bfloat16", None,
+                   1032)
+#: deepseek-v2-lite-16b's MLA prefill (B 2, 16 heads, Dk 192; V zero-padded
+#: from 128 to 192 by the model).
+DEEPSEEK_PREFILL = (2, 16, 16, 1024, 1024, 192, True, 0, "bfloat16")
+#: f32 at D 256 and 192 on simt, windowed and with a key count.
+SIMT_D256 = (1, 8, 4, 512, 512, 256, True, 0, "float32", 128, None)
+SIMT_D192 = (1, 8, 2, 256, 300, 192, False, 0, "float32", None, 280)
+#: Each route forced at D 192 and 256, the masks among the cases.
+LARGE_D_ROUTE_CASES = [
+    (GEMMA_PREFILL, "wgmma"),
+    (NEMOTRON_PREFILL, "wgmma"),
+    (DEEPSEEK_PREFILL, "wgmma"),
+    ((1, 4, 2, 333, 400, 256, True, 67, "bfloat16", 65, None), "wgmma"),
+    ((1, 4, 2, 200, 333, 192, False, 0, "bfloat16", None, 250), "wgmma"),
+    (GEMMA_DECODE_RING, "splitkv"),
+    (GEMMA_DECODE_RING_FILLING, "splitkv"),
+    (GEMMA_DECODE_GLOBAL, "splitkv"),
+    (NEMOTRON_DECODE, "splitkv"),
+    ((1, 8, 2, 16, 300, 256, True, 200, "bfloat16", 70, None), "splitkv"),
+    (SIMT_D256, "simt"),
+    (SIMT_D192, "simt"),
+    ((1, 4, 4, 1, 200, 256, False, 150, "float32", None, 151), "simt"),
+]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: A second limit on the bf16 routes, beside the reference's: each output
 #: row's (a position's and head's) largest error at most this share of the
@@ -1310,11 +1378,16 @@ SDPA_NOTE = ("torch.nn.functional.scaled_dot_product_attention (enable_gqa), "
              "timed as a yardstick only")
 
 
+def case_masks(case) -> dict:
+    """The window and key count a case carries (none for 9 fields)."""
+    return {"window": case[9], "kv_len": case[10]} if len(case) > 9 else {}
+
+
 def flash_inputs(case, dev):
     import numpy as np
     import torch
 
-    b, hq, hkv, sq, skv, d, _causal, _off, dtype = case
+    b, hq, hkv, sq, skv, d, _causal, _off, dtype = case[:9]
     rng = np.random.default_rng(b * 31 + sq + skv)
     shapes = ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
     return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
@@ -1325,13 +1398,19 @@ def flash_bound_ms(case) -> tuple:
     """Least time for one call on these inputs: Q and O once, the K/V rows
     some query attends once, over the HBM rate; against 4 * D operations per
     attended (query, key) pair (two products) over the peak rate of the
-    inputs' type."""
-    b, hq, hkv, sq, skv, d, causal, off, dtype = case
-    if causal:
-        pairs = sum(max(0, min(skv, off + i + 1)) for i in range(sq))
-        kv_rows = max(0, min(skv, off + sq))
-    else:
-        pairs, kv_rows = sq * skv, skv
+    inputs' type.  A pair is attended if its key lies below ``kv_len``, at
+    or before the query when causal, and inside the window."""
+    b, hq, hkv, sq, skv, d, causal, off, dtype = case[:9]
+    masks = case_masks(case)
+    window, kv_len = masks.get("window"), masks.get("kv_len")
+    top = skv if kv_len is None else min(skv, kv_len)
+    spans = []
+    for i in range(sq):
+        hi = min(top, off + i + 1) if causal else top
+        lo = max(0, off + i - window + 1) if window else 0
+        spans.append((lo, max(lo, hi)))
+    pairs = sum(hi - lo for lo, hi in spans)
+    kv_rows = max(0, max(hi for _lo, hi in spans) - min(lo for lo, _hi in spans))
     item = 2 if dtype == "bfloat16" else 4
     n_bytes = item * (2 * b * hq * sq * d + 2 * b * hkv * kv_rows * d)
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
@@ -1343,18 +1422,35 @@ def flash_bound_ms(case) -> tuple:
 
 def sdpa_call(case, q, k, v):
     """The library yardstick: one scaled_dot_product_attention call on the
-    same inputs ([B, H, S, D], GQA in the call).  A decode step at q_offset
-    attends keys 0..q_offset, which is SDPA without a mask over those keys."""
+    same inputs ([B, H, S, D], GQA in the call).  The keys past the last
+    live one are sliced off (a decode step at q_offset attends keys 0 ..
+    q_offset, or 0 .. kv_len - 1: SDPA without a mask over those keys).  A
+    window, or a causal chunk at an offset, takes a boolean mask, and then
+    K/V repeated to the query heads outside the timed call (the fused
+    kernels with a mask take no GQA)."""
+    import torch
     import torch.nn.functional as F
 
-    causal, off, sq = case[6], case[7], case[3]
-    if causal and off:
-        if sq != 1:
-            raise ValueError("only decode steps carry a q_offset here")
-        k, v = k[:, :, :off + 1], v[:, :, :off + 1]
-        causal = False
-    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                  enable_gqa=True)
+    sq, skv, causal, off = case[3], case[4], case[6], case[7]
+    masks = case_masks(case)
+    window, kv_len = masks.get("window"), masks.get("kv_len")
+    hi = skv if kv_len is None else min(skv, kv_len)
+    if causal:
+        hi = min(hi, off + sq)
+    k, v = k[:, :, :hi], v[:, :, :hi]
+    if window is None and (not causal or off == 0 or sq == 1):
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal and off == 0, enable_gqa=True)
+    qpos = off + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(hi, device=q.device)[None, :]
+    allowed = torch.ones((sq, hi), dtype=torch.bool, device=q.device)
+    if causal:
+        allowed &= kpos <= qpos
+    if window is not None:
+        allowed &= kpos > qpos - window
+    group = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
 
 
 def cuda_ms_cold(fn, reps: int = 30) -> float:
@@ -1407,7 +1503,8 @@ def flash_compare(got, want, dtype: str) -> dict:
             "max_err_over_row_max": rel, "ok": ok}
 
 
-def layer0_compare(out, q, k, v, causal, q_offset, scale=None) -> dict:
+def layer0_compare(out, q, k, v, causal, q_offset, scale=None,
+                   **masks) -> dict:
     """A bf16 route's output for a model's attention call against the plain
     version on the same inputs, with q x scale rounded to bf16 first, as
     the TPU kernel (and each bf16 route) rounds it: each row within
@@ -1425,11 +1522,11 @@ def layer0_compare(out, q, k, v, causal, q_offset, scale=None) -> dict:
     s = fa.softmax_scale(q.shape[-1]) if scale is None else scale
     q_rounded = (q.float() * s).to(q.dtype)
     row = flash_compare(out, fa.plain(q_rounded, k, v, causal, q_offset,
-                                      scale=1.0), "bfloat16")
+                                      scale=1.0, **masks), "bfloat16")
     row["ok"] = (bool(torch.isfinite(out).all())
                  and row["max_err_over_row_max"] <= BF16_TIGHT)
-    unrounded = flash_compare(out, fa.plain(q, k, v, causal, q_offset, scale),
-                              "bfloat16")
+    unrounded = flash_compare(out, fa.plain(q, k, v, causal, q_offset, scale,
+                                            **masks), "bfloat16")
     row["vs_unrounded_plain (recorded)"] = {
         key: unrounded[key] for key in ("max_abs_err", "max_err_over_row_max")}
     return row
@@ -1439,13 +1536,13 @@ def _bshd(x):
     return x.transpose(1, 2)
 
 
-def flash_launch(route, q, k, v, causal, off):
+def flash_launch(route, q, k, v, causal, off, **masks):
     """``route`` forced on ``[B, S, H, D]`` inputs, with the planner's
     splits (the ``splitkv`` route plans itself on every call it takes)."""
     from repro_torch.kernels import flash_attention as fa
 
     return fa._launch(route, q, k, v, causal, off,
-                      fa.plan(q, k, causal, off)[1])
+                      fa.plan(q, k, causal, off, **masks)[1], **masks)
 
 
 def flash_check(case, dev, route=None) -> dict:
@@ -1456,13 +1553,15 @@ def flash_check(case, dev, route=None) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     causal, off, dtype = case[6], case[7], case[8]
+    masks = case_masks(case)
     q, k, v = (_bshd(x) for x in flash_inputs(case, dev))
-    planned = fa.plan(q, k, causal, off)[0]
+    planned = fa.plan(q, k, causal, off, **masks)[0]
     if route is None:
-        got = fa.flash_attention_bshd(q, k, v, causal=causal, q_offset=off)
+        got = fa.flash_attention_bshd(q, k, v, causal=causal, q_offset=off,
+                                      **masks)
     else:
-        got = flash_launch(route, q, k, v, causal, off)
-    want = fa.plain(q, k, v, causal, off)
+        got = flash_launch(route, q, k, v, causal, off, **masks)
+    want = fa.plain(q, k, v, causal, off, **masks)
     torch.cuda.synchronize()
     return {"case": list(case), "route": route or planned,
             "planned_route": planned, **flash_compare(got, want, dtype)}
@@ -1477,28 +1576,37 @@ def flash_controls(dev) -> list:
     from repro_torch.kernels import flash_attention as fa
 
     def last_split(case):
-        n_live = fa.live_keys(case[3], case[4], case[6], case[7])
+        n_live = fa.live_range(case[3], case[4], case[6], case[7])[1]
         b, _hq, hkv = case[:3]
         return fa.split_ranges(n_live, fa.decode_splits(b * hkv, n_live))[-1]
 
     todo = [
         ("splitkv", FLASH_DECODE, "the last live key left out (mask off by "
-         "one)", FLASH_DECODE[7]),
+         "one)", FLASH_DECODE[7], {}),
         ("splitkv", FLASH_DECODE_8K, "the last split left out",
-         last_split(FLASH_DECODE_8K)[0]),
+         last_split(FLASH_DECODE_8K)[0], {}),
         ("wgmma", FLASH_PREFILL, "the last 64-key tile left out",
-         FLASH_PREFILL[4] - 64),
+         FLASH_PREFILL[4] - 64, {}),
         ("wgmma", HUBERT_ATTN_1000, "the last 64 keys left out (D 80, "
-         "padded tile, not causal)", HUBERT_ATTN_1000[4] - 64),
+         "padded tile, not causal)", HUBERT_ATTN_1000[4] - 64, {}),
         ("simt", FLASH_F32, "the last 16-key tile left out (f32)",
-         FLASH_F32[4] - 16),
+         FLASH_F32[4] - 16, {}),
+        ("wgmma", GEMMA_PREFILL, "the window's first 64 keys left out (D "
+         "256: window 960 for 1,024)", GEMMA_PREFILL[4], {"window": 960}),
+        ("splitkv", GEMMA_DECODE_GLOBAL, "the last 64 live keys left out "
+         "(D 256: kv_len 2,007 for 2,071)", GEMMA_DECODE_GLOBAL[4],
+         {"kv_len": 2007}),
+        ("simt", SIMT_D256, "the window one key narrower (f32, D 256)",
+         SIMT_D256[4], {"window": SIMT_D256[9] - 1}),
     ]
     out = []
-    for route, case, defect, n_keys in todo:
+    for route, case, defect, n_keys, defect_masks in todo:
         causal, off = case[6], case[7]
+        masks = case_masks(case)
         q, k, v = (_bshd(x) for x in flash_inputs(case, dev))
-        got = flash_launch(route, q, k[:, :n_keys], v[:, :n_keys], causal, off)
-        want = fa.plain(q, k, v, causal, off)
+        got = flash_launch(route, q, k[:, :n_keys], v[:, :n_keys], causal,
+                           off, **{**masks, **defect_masks})
+        want = fa.plain(q, k, v, causal, off, **masks)
         torch.cuda.synchronize()
         row = flash_compare(got, want, case[8])
         tol = FLASH_TOL[case[8]]
@@ -1517,20 +1625,22 @@ def flash_timing(case, dev, route: str, n_per: int, cold: bool = False) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     causal, off = case[6], case[7]
+    masks = case_masks(case)
     q, k, v = flash_inputs(case, dev)
     qs, ks, vs = _bshd(q), _bshd(k), _bshd(v)
 
-    splits = fa.plan(qs, ks, causal, off)[1]
+    splits = fa.plan(qs, ks, causal, off, **masks)[1]
 
     def call():
-        return fa._launch(route, qs, ks, vs, causal, off, splits)
+        return fa._launch(route, qs, ks, vs, causal, off, splits, **masks)
 
     ms = cuda_ms(call, n_per)
     prof = device_profile(lambda: [call() for _ in range(n_per)])
     bound_ms, bound_by = flash_bound_ms(case)
     row = {"case": list(case), "route": route, "ms": ms,
            "device_us": route_device_us(prof, route),
-           "plain_ms": cuda_ms(lambda: fa.plain(qs, ks, vs, causal, off), 3),
+           "plain_ms": cuda_ms(lambda: fa.plain(qs, ks, vs, causal, off,
+                                                **masks), 3),
            "library_ms": cuda_ms(sdpa_call(case, q, k, v), n_per),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "share_of_bound": bound_ms / ms}
@@ -1562,8 +1672,12 @@ def phase_flash(dev) -> dict:
 
     checks = []
     planned = FLASH_CASES + [FLASH_PREFILL, FLASH_DECODE, FLASH_F32,
-                             HUBERT_ATTN, MOE_PREFILL, MOE_DECODE]
-    todo = [(c, None) for c in planned] + FLASH_ROUTE_CASES
+                             HUBERT_ATTN, MOE_PREFILL, MOE_DECODE,
+                             GEMMA_PREFILL, GEMMA_DECODE_RING,
+                             GEMMA_DECODE_GLOBAL, NEMOTRON_PREFILL,
+                             NEMOTRON_DECODE, DEEPSEEK_PREFILL]
+    todo = ([(c, None) for c in planned] + FLASH_ROUTE_CASES
+            + LARGE_D_ROUTE_CASES)
     for case, route in todo:
         checks.append(flash_check(case, dev, route))
         if not checks[-1]["ok"]:
@@ -1588,10 +1702,24 @@ def phase_flash(dev) -> dict:
         "wgmma_hubert": flash_timing(HUBERT_ATTN, dev, "wgmma", 20),
         "wgmma_hubert_1000": flash_timing(HUBERT_ATTN_1000, dev, "wgmma", 20),
         "simt_f32": flash_timing(FLASH_F32, dev, "simt", 50),
-        "simt_f32_large": flash_timing(SIMT_LARGE, dev, "simt", 10),
+        # 20 calls a profile at least: in this script's run the profiler
+        # recorded no device time for every row of 10 (PERF.md §7).
+        "simt_f32_large": flash_timing(SIMT_LARGE, dev, "simt", 20),
         "wgmma_moe_prefill": flash_timing(MOE_PREFILL, dev, "wgmma", 20),
         "splitkv_moe_decode": flash_timing(MOE_DECODE, dev, "splitkv", 200,
                                            cold=True),
+        "wgmma_gemma_prefill": flash_timing(GEMMA_PREFILL, dev, "wgmma", 20),
+        "splitkv_gemma_ring_decode": flash_timing(GEMMA_DECODE_RING, dev,
+                                                  "splitkv", 200, cold=True),
+        "splitkv_gemma_global_decode": flash_timing(
+            GEMMA_DECODE_GLOBAL, dev, "splitkv", 200, cold=True),
+        "wgmma_nemotron_prefill": flash_timing(NEMOTRON_PREFILL, dev,
+                                               "wgmma", 20),
+        "splitkv_nemotron_decode": flash_timing(NEMOTRON_DECODE, dev,
+                                                "splitkv", 200, cold=True),
+        "wgmma_deepseek_prefill": flash_timing(DEEPSEEK_PREFILL, dev,
+                                               "wgmma", 20),
+        "simt_d256": flash_timing(SIMT_D256, dev, "simt", 20),
     }
     emit("flash", ok=True, routes=list(fa.ROUTES), tol=FLASH_TOL,
          tight=BF16_TIGHT, checks=checks, controls=controls, timings=timings,
@@ -1695,20 +1823,20 @@ def phase_serve(dev) -> dict:
                          generator=torch.Generator().manual_seed(12)).to(dev)
     kernel_attn = layers.flash_attention_bshd
 
-    def tile_left_out(q, k, v, causal, q_offset):
+    def tile_left_out(q, k, v, causal, q_offset, **masks):
         return kernel_attn(q, k[:, :-64], v[:, :-64], causal=causal,
-                           q_offset=q_offset)
+                           q_offset=q_offset, **masks)
 
     def bf16_forward(attn):
         """Logits through ``attn`` in every layer, and the first layer's
         attention output held to the plain version on its own inputs."""
         seen = []
 
-        def first_layer(q, k, v, causal, q_offset):
-            out = attn(q, k, v, causal=causal, q_offset=q_offset)
+        def first_layer(q, k, v, causal, q_offset, **masks):
+            out = attn(q, k, v, causal=causal, q_offset=q_offset, **masks)
             if not seen:
-                row = flash_compare(out, fa.plain(q, k, v, causal, q_offset),
-                                    "bfloat16")
+                row = flash_compare(out, fa.plain(q, k, v, causal, q_offset,
+                                                  **masks), "bfloat16")
                 # BF16_TIGHT alone: see the note above BF16_MAX_FACTOR.
                 row["ok"] = (bool(torch.isfinite(out).all())
                              and row["max_err_over_row_max"] <= BF16_TIGHT)
@@ -2269,10 +2397,12 @@ def phase_encode(dev, smi: str) -> dict:
     def layer0(attn) -> dict:
         seen = []
 
-        def first_layer(q, k, v, causal, q_offset, scale=None):
-            out = attn(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+        def first_layer(q, k, v, causal, q_offset, scale=None, **masks):
+            out = attn(q, k, v, causal=causal, q_offset=q_offset, scale=scale,
+                       **masks)
             if not seen:
-                row = layer0_compare(out, q, k, v, causal, q_offset, scale)
+                row = layer0_compare(out, q, k, v, causal, q_offset, scale,
+                                     **masks)
                 logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                                       k.float()) * fa.softmax_scale(q.shape[-1])
                 row["logit_absmax"] = float(logits.abs().max())
@@ -2289,9 +2419,9 @@ def phase_encode(dev, smi: str) -> dict:
         return seen[0] if seen else {"ok": False,
                                      "not_reached": "no kernel call"}
 
-    def keys_left_out(q, k, v, causal, q_offset, scale=None):
+    def keys_left_out(q, k, v, causal, q_offset, scale=None, **masks):
         return kernel_attn(q, k[:, :-64], v[:, :-64], causal=causal,
-                           q_offset=q_offset, scale=scale)
+                           q_offset=q_offset, scale=scale, **masks)
 
     attn0 = layer0(kernel_attn)
     attn0_control = layer0(keys_left_out)
@@ -2496,14 +2626,15 @@ def phase_moe_serve(dev, smi: str) -> dict:
         ``cut_layer``'s call."""
         seen, calls = [], [0]
 
-        def attn(q, k, v, causal, q_offset, scale=None):
+        def attn(q, k, v, causal, q_offset, scale=None, **masks):
             i = calls[0]
             calls[0] += 1
             cut = slice(None, -64 if i == cut_layer else None)
             out = kernel_attn(q, k[:, cut], v[:, cut], causal=causal,
-                              q_offset=q_offset, scale=scale)
+                              q_offset=q_offset, scale=scale, **masks)
             if i == 0:
-                row = layer0_compare(out, q, k, v, causal, q_offset, scale)
+                row = layer0_compare(out, q, k, v, causal, q_offset, scale,
+                                     **masks)
                 row["qkv_std"] = [float(t.float().std()) for t in (q, k, v)]
                 seen.append(row)
             return out
@@ -2612,19 +2743,248 @@ def tree_slice(tree, n: int):
     return tree_map(lambda t: t[:n], tree)
 
 
+# -- gemma3-4b served: local and global layers, ring caches --------------------
+
+GEMMA_SERVE_ARGS = ["--arch", "gemma3-4b", "--no-reduced", "--requests", "6",
+                    "--batch", "4", "--prompt-len", "2048", "--gen", "32",
+                    "--seed", "0", "--device", "cuda"]
+#: The bf16 check's sequence: past the 1,024-key window, so every local
+#: layer's window masks keys in the rows past it (layer 0 among them).
+GEMMA_GATE_LEN = 2048
+
+
+def phase_gemma_serve(dev, smi: str) -> dict:
+    """gemma3-4b through ``launch.serve`` at full width and depth (34
+    layers, d 2560, 8 / 4 heads of 256, a 1,024-key window on 29 layers,
+    vocab 262,144; bf16, seeded weights at the reference's fan-in): 2,048-
+    token prompts, so the window masks half of each local prefill's keys,
+    and 32 generated tokens on 1,024-slot rings that wrap.  Every prefill
+    call on ``wgmma`` and every decode call on ``splitkv`` at D 256; the
+    tier's caches bit-equal to fresh prefills; a traced hit; bf16 logits
+    through the kernels against the f32 plain run's as the plain bf16 run's
+    are, layer 0 (a local layer) within 2^-5 of each row's largest value of
+    the plain version on q rounded as the kernel rounds it, at positions
+    past the window, and a control (every window one key narrower) that
+    must be caught."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ttl_scan
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import forward, layers
+    from repro_torch.serve import prefill
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gates = {}
+    args = launch_serve.build_parser().parse_args(GEMMA_SERVE_ARGS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel_attn = layers.flash_attention_bshd
+    calls = []          # (Sq, Skv, causal, window, kv_len) of every call
+
+    def recorded(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], kw.get("causal"),
+                      kw.get("window"), kw.get("kv_len")))
+        return kernel_attn(q, k, v, **kw)
+
+    fa.reset_launches()
+    ttl_scan.ttl_cost_surface.launches = 0
+    layers.flash_attention_bshd = recorded
+    try:
+        t0 = time.perf_counter()
+        res = launch_serve.run(args)
+        wall = time.perf_counter() - t0
+    finally:
+        layers.flash_attention_bshd = kernel_attn
+    route_launches = dict(fa.flash_attention_bshd.route_launches)
+    ttl_launches = ttl_scan.ttl_cost_surface.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, params, tier = res["cfg"], res["params"], res["tier"]
+    tier_stats = json.loads(json.dumps(tier.stats))
+
+    prefills = res["hit"].count(False)
+    steps = sum(res["decode_steps"])
+    n_local = sum(s.window is not None for s in cfg.layers())
+    window = next(s.window for s in cfg.layers() if s.window is not None)
+    want_routes = {"wgmma": cfg.n_layers * prefills,
+                   "splitkv": cfg.n_layers * steps, "simt": 0}
+    gates["route_launches"] = route_launches == want_routes
+    gates["three_misses_three_hits"] = res["hit"] == [False] * 3 + [True] * 3
+    tokens = torch.stack(res["tokens"])
+    gates["tokens"] = (tuple(tokens.shape) == (args.requests, args.batch,
+                                               args.gen)
+                       and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    pre = [c for c in calls if c[0] == args.prompt_len]
+    dec = [c for c in calls if c[0] == 1]
+    ring = [c for c in dec if c[1] == window]
+    glob = [c for c in dec if c[1] != window]
+    calls_seen = {
+        "prefill_windowed": sum(c[3] == window for c in pre),
+        "prefill_global": sum(c[3] is None for c in pre),
+        "decode_ring": len(ring), "decode_global": len(glob),
+        "ring_kv_len": sorted({c[4] for c in ring}),
+        "global_kv_len_range": [min((c[4] for c in glob), default=None),
+                                max((c[4] for c in glob), default=None)],
+        "global_slots": sorted({c[1] for c in glob})}
+    # The window bites: every local prefill call attends a 2,048-key
+    # prompt through its 1,024-key window.  The rings wrap: every decode
+    # position is past 1,024, each local call reads its full ring
+    # (kv_len = 1,024 slots) and each global call its filled slots.
+    gates["window_bites_in_prefill"] = (
+        calls_seen["prefill_windowed"] == n_local * prefills
+        and args.prompt_len > window and all(c[2] for c in pre))
+    gates["rings_wrap_in_decode"] = (
+        len(ring) == n_local * steps and calls_seen["ring_kv_len"] == [window]
+        and len(glob) == (cfg.n_layers - n_local) * steps
+        and all(c[4] <= c[1] and not c[2] for c in dec)
+        and args.prompt_len > window)
+    prefill_s = [x for x in res["prefill_s"] if x is not None]
+    decode_s = sum(res["decode_s"])
+    n_tok = args.requests * args.batch * args.gen
+
+    # The tier's caches against a fresh prefill of each prompt, bit for bit.
+    prompts = launch_serve.make_prompts(cfg, args)
+    payload_ok = []
+    for prompt, blk in zip(prompts[:3], tier.blocks.values()):
+        with torch.no_grad():
+            _lg, fresh, _pos = prefill(cfg, params, prompt.to(dev),
+                                       max_len=args.prompt_len + args.gen)
+        stored = blk.payload[0]
+        payload_ok.append(all(
+            torch.equal(stored[g][n][key], fresh[g][n][key])
+            for g in fresh for n in fresh[g] for key in fresh[g][n]))
+        del fresh, _lg
+    gates["tier_caches_bit_equal"] = all(payload_ok)
+    reuse_agree = float(torch.stack([
+        (tokens[i] == tokens[i + 3]).double().mean() for i in range(3)]).mean())
+
+    # A hit request traced: where the card's time goes in decode.
+    prof = device_profile(lambda: launch_serve.serve(
+        cfg, params, prompts[:1], args.gen, tier, dev))
+    if "ops" in prof:
+        prof["ops"] = dict(sorted(prof["ops"].items(),
+                                  key=lambda kv: -kv[1]["count"]
+                                  * kv[1]["mean_us"])[:20])
+    tier.blocks.clear()
+    del res
+    torch.cuda.empty_cache()
+
+    # Kernels against plain attention in bf16 at full width and depth, held
+    # to f32 activations on the same bf16 weights (bf16 -> f32 is exact).
+    toks = torch.randint(0, cfg.vocab, (1, GEMMA_GATE_LEN),
+                         generator=torch.Generator().manual_seed(12)).to(dev)
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    with torch.no_grad():
+        lp = forward(cfg32, params, toks, plain_attention=True)[0]
+
+    def bf16_forward(plain=False, narrower=0):
+        """bf16 logits, and layer 0's attention held to the plain version
+        with the layer's true window (``layer0_compare``); every window
+        ``narrower`` keys narrower in the kernels' calls."""
+        seen = []
+
+        def attn(q, k, v, causal, q_offset, scale=None, window=None,
+                 kv_len=None):
+            got_window = None if window is None else window - narrower
+            out = kernel_attn(q, k, v, causal=causal, q_offset=q_offset,
+                              scale=scale, window=got_window, kv_len=kv_len)
+            if not seen:
+                row = layer0_compare(out, q, k, v, causal, q_offset, scale,
+                                     window=window, kv_len=kv_len)
+                row["window"] = window
+                row["qkv_std"] = [float(t.float().std()) for t in (q, k, v)]
+                seen.append(row)
+            return out
+
+        layers.flash_attention_bshd = attn
+        try:
+            with torch.no_grad():
+                logits = forward(cfg, params, toks, plain_attention=plain)[0]
+        finally:
+            layers.flash_attention_bshd = kernel_attn
+        return logits, (seen[0] if seen else None)
+
+    fa.reset_launches()
+    lk16, layer0 = bf16_forward()
+    bf16_routes = dict(fa.flash_attention_bshd.route_launches)
+    lc16, layer0_control = bf16_forward(narrower=1)
+    lp16, _ = bf16_forward(plain=True)
+    torch.cuda.synchronize()
+
+    def vs_f32(logits):
+        err = (logits.float() - lp).abs()
+        return {"max_abs": float(err.max()), "mean_abs": float(err.mean()),
+                "argmax_agreement":
+                    float((logits.argmax(-1) == lp.argmax(-1)).double().mean())}
+
+    e_k, e_p, e_c = vs_f32(lk16), vs_f32(lp16), vs_f32(lc16)
+    limits = {"max_abs": BF16_MAX_FACTOR * e_p["max_abs"],
+              "mean_abs": BF16_MEAN_FACTOR * e_p["mean_abs"]}
+
+    def within(e):
+        return all(e[key] <= limits[key] for key in limits)
+
+    gates["bf16_routes"] = bf16_routes == {"wgmma": cfg.n_layers,
+                                           "splitkv": 0, "simt": 0}
+    gates["layer0_attention"] = layer0["ok"] and layer0["window"] == window
+    gates["bf16_logits"] = bool(torch.isfinite(lk16).all()) and within(e_k)
+    gates["control_caught"] = not (within(e_c) and layer0_control["ok"])
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    del lk16, lp16, lc16, lp, params
+    torch.cuda.empty_cache()
+
+    ok = all(gates.values())
+    emit("gemma_serve", ok=ok, nvidia_smi=smi, gates=gates,
+         args=GEMMA_SERVE_ARGS, arch=cfg.name, layers=cfg.n_layers,
+         local_layers=n_local, window=window, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads],
+         head_dim=cfg.resolved_head_dim, vocab=cfg.vocab,
+         params=cfg.param_count(), param_bytes=param_bytes,
+         prefills=prefills, decode_steps=steps,
+         route_launches=route_launches, route_launches_expected=want_routes,
+         flash_calls=calls_seen, ttl_scan_launches=ttl_launches,
+         prefill_ms=[1e3 * x for x in prefill_s],
+         decode_ms_per_step=1e3 * decode_s / steps,
+         tokens_per_s=n_tok / (sum(prefill_s) + decode_s), wall_s=wall,
+         peak_memory_bytes=peak, tier_stats=tier_stats,
+         tier_payload_unchanged=payload_ok,
+         reused_prefix_token_agreement=reuse_agree,
+         traced_hit_request=prof,
+         kernel_vs_plain={
+             "batch": 1, "seq": GEMMA_GATE_LEN, "route_launches": bf16_routes,
+             "layer0_attention": layer0, "kernel_vs_f32": e_k,
+             "plain_vs_f32": e_p, "limits": limits,
+             "control": {"defect": "every window one key narrower in the "
+                                   "kernels' calls",
+                         "vs_f32": e_c, "caught_by_logits": not within(e_c),
+                         "layer0_attention": layer0_control}})
+    if not ok:
+        raise SystemExit("gemma3-4b serving path check failed: "
+                         + ", ".join(k for k, v in gates.items() if not v))
+    return {"routes": route_launches, "ttl_launches": ttl_launches}
+
+
 # -- the other mixers: MLA, Mamba, RWKV6 ---------------------------------------
 
-#: (arch, layers kept, plain attention in prefill).  deepseek keeps its dense
-#: prefix layer and 2 MLA / MoE layers, and its MLA prefill (Dk 192 != Dv
-#: 128) takes the plain attention: no flash route computes it (ROADMAP.md
-#: Queue 1 item 14).  jamba keeps one repeat of its 8-layer pattern (62.1 B
-#: parameters do not fit one card); rwkv6 runs at full depth.  Weights are
-#: drawn ``per_layer`` (see ``init_params``): with the reference's fan-in
-#: (the layer count) one or two repeats leave std-1 weights, and deepseek's
-#: bf16 logits came out all zero (the final norm's fp32 square overflows).
-MIXER_RUNS = [("deepseek-v2-lite-16b", 3, True),
-              ("jamba-v0.1-52b", 8, False),
-              ("rwkv6-3b", 32, False)]
+#: (arch, layers kept).  deepseek keeps its dense prefix layer and 2 MLA /
+#: MoE layers; its MLA prefill (Dk 192, Dv 128) runs on the D 192 wgmma
+#: kernel, V zero-padded to 192, held to its plain-attention run
+#: (``mla_vs_plain``).  jamba keeps one repeat of its 8-layer pattern (62.1 B
+#: parameters do not fit one card); rwkv6 runs at full depth.
+#: nemotron-4-340b keeps 2 of its 96 layers at full width (d 18,432, 96 / 8
+#: heads of 192, squared-ReLU MLP of 73,728; 16.3 B parameters, 32.6 GB in
+#: bf16, ~45 GB at the init's f32 draw of the stacked MLP leaf): its group
+#: of 12 puts 10 positions in a 128-row wgmma item and leaves 8 rows spare.
+#: Weights are drawn ``per_layer`` (see ``init_params``): with the
+#: reference's fan-in (the layer count) one or two repeats leave std-1
+#: weights, and deepseek's bf16 logits came out all zero (the final norm's
+#: fp32 square overflows).
+MIXER_RUNS = [("deepseek-v2-lite-16b", 3),
+              ("jamba-v0.1-52b", 8),
+              ("rwkv6-3b", 32),
+              ("nemotron-4-340b", 2)]
 MIXER_BATCH, MIXER_PROMPT, MIXER_STEPS = 2, 1024, 8
 #: A decode step's logits against a full forward of the extended sequence,
 #: with f32 activations on the same bf16 weights (exact), on the first
@@ -2648,10 +3008,10 @@ LAYER0_CACHE_TOL = 2.0 ** -5
 #: The reduced configs, f32, card against the port on the CPU.
 REDUCED_TOL = 1e-4
 REDUCED_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "jamba-v0.1-52b",
-                 "rwkv6-3b")
+                 "rwkv6-3b", "gemma3-4b")
 
 
-def decode_steps(cfg, params, toks, plain: bool):
+def decode_steps(cfg, params, toks):
     """Prefill ``MIXER_PROMPT`` tokens (each MoE call's drops per row
     counted), grow the caches, decode ``MIXER_STEPS`` more; returns
     (prefill logits, each step's last logits, the caches, per-call drops,
@@ -2665,7 +3025,7 @@ def decode_steps(cfg, params, toks, plain: bool):
         t0 = time.perf_counter()
         with MoERoutes() as rd:
             logits, caches, _ = forward(cfg, params, toks[:, :MIXER_PROMPT],
-                                        mode="prefill", plain_attention=plain)
+                                        mode="prefill")
         caches = grow_cache(cfg, caches, MIXER_PROMPT + MIXER_STEPS)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -2687,7 +3047,55 @@ def layer0_caches(caches):
     return layer
 
 
-def mixer_run(arch: str, n_layers: int, plain: bool, dev) -> tuple:
+def mla_vs_plain(cfg, params, toks) -> dict:
+    """The MLA prefill on the kernel against its plain-attention run (the
+    control): layer 0's MLA call (V zero-padded to Dk) within 2^-5 of each
+    row's largest value of the plain version on q rounded as the kernel
+    rounds it; the same call with its last 64 keys left out, which must
+    fail that; the bf16 prefill logits' distance from the plain run's
+    (recorded: bf16 MoE routing flips at near-ties)."""
+    import torch
+    from repro_torch.models import forward, layers
+
+    kernel_attn = layers.flash_attention_bshd
+
+    def run(cut: bool):
+        seen = []
+
+        def attn(q, k, v, causal, q_offset, scale=None, **masks):
+            n = -64 if cut and not seen else None
+            out = kernel_attn(q, k[:, :n], v[:, :n], causal=causal,
+                              q_offset=q_offset, scale=scale, **masks)
+            if not seen:
+                seen.append(layer0_compare(out, q, k, v, causal, q_offset,
+                                           scale, **masks))
+                seen[0]["dims"] = [q.shape[-1], v.shape[-1]]
+            return out
+
+        layers.flash_attention_bshd = attn
+        try:
+            with torch.no_grad():
+                logits = forward(cfg, params, toks, mode="prefill")[0]
+        finally:
+            layers.flash_attention_bshd = kernel_attn
+        return logits, seen[0]
+
+    lk, row = run(False)
+    _lc, control = run(True)
+    with torch.no_grad():
+        lp = forward(cfg, params, toks, mode="prefill",
+                     plain_attention=True)[0]
+    err = float((lk.float() - lp.float()).abs().max())
+    return {"layer0_attention": row,
+            "control": {"defect": "the last 64 keys left out of layer 0's "
+                                  "MLA call", **control},
+            "prefill_logits_vs_plain (recorded)": {
+                "max_abs": err, "scale": float(lp.float().abs().max()),
+                "argmax_agreement": float((lk.argmax(-1) == lp.argmax(-1))
+                                          .double().mean())}}
+
+
+def mixer_run(arch: str, n_layers: int, dev) -> tuple:
     """The bf16 prefill and decode steps (times, launches, finite, layer-0
     caches against a prefill of the whole sequence), then the same in f32
     activations, each step's logits held to a full forward of the
@@ -2707,19 +3115,20 @@ def mixer_run(arch: str, n_layers: int, plain: bool, dev) -> tuple:
     toks = torch.randint(0, cfg.vocab, (MIXER_BATCH, MIXER_PROMPT + MIXER_STEPS),
                          generator=torch.Generator().manual_seed(7)).to(dev)
     n_attn = sum(s.mixer in ("attn", "swa") for s in cfg.layers())
+    n_mla = sum(s.mixer == "mla" for s in cfg.layers())
     n = MIXER_PROMPT + MIXER_STEPS
 
-    # bf16, the main path: prefill and decode on the kernels.
+    # bf16, the main path: prefill and decode on the kernels (MLA's decode
+    # is the absorbed form: no kernel).
     fa.reset_launches()
     logits, dec, caches, drops16, prefill_s, decode_s = decode_steps(
-        cfg, params, toks, plain)
+        cfg, params, toks)
     routes = dict(fa.flash_attention_bshd.route_launches)
     finite = bool(torch.isfinite(logits).all()) and all(
         bool(torch.isfinite(d).all()) for d in dec)
     peak = torch.cuda.max_memory_allocated(dev)
     with torch.no_grad():
-        whole = forward(cfg, params, toks, mode="prefill",
-                        plain_attention=plain)[1]
+        whole = forward(cfg, params, toks, mode="prefill")[1]
     cache_err = {}
     for key, got in layer0_caches(caches).items():
         want = layer0_caches(whole)[key]
@@ -2728,6 +3137,7 @@ def mixer_run(arch: str, n_layers: int, plain: bool, dev) -> tuple:
         cache_err[key] = float((got.float() - want.float()).abs().max()) / max(
             float(want.float().abs().max()), 1e-30)
     del logits, caches, whole
+    mla = mla_vs_plain(cfg, params, toks[:, :MIXER_PROMPT]) if n_mla else None
 
     # f32 activations on the same weights, the first MIXER_CHECK_LAYERS
     # layers: decode against full forwards.
@@ -2736,13 +3146,13 @@ def mixer_run(arch: str, n_layers: int, plain: bool, dev) -> tuple:
     cfg32 = dataclasses.replace(cfg, act_dtype="float32", n_layers=n_chk)
     p32 = dict(params, blocks={k: tree_slice(v, reps)
                                for k, v in params["blocks"].items()})
-    _lg, dec32, _c, drops32, _ps, _ds = decode_steps(cfg32, p32, toks, plain)
+    _lg, dec32, _c, drops32, _ps, _ds = decode_steps(cfg32, p32, toks)
     del _lg, _c
     steps = []
     for j in range(MIXER_STEPS):
         with torch.no_grad(), MoERoutes() as rd:
-            full = forward(cfg32, p32, toks[:, :MIXER_PROMPT + j + 1],
-                           plain_attention=plain)[0][:, -1]
+            full = forward(cfg32, p32,
+                           toks[:, :MIXER_PROMPT + j + 1])[0][:, -1]
         full_drops = rd.drops()
         chunk_start = (cfg.rwkv is None
                        or (MIXER_PROMPT + j) % cfg.rwkv.chunk == 0)
@@ -2763,15 +3173,19 @@ def mixer_run(arch: str, n_layers: int, plain: bool, dev) -> tuple:
         steps.append(rows)
         finite = finite and bool(torch.isfinite(full).all())
     routes32 = dict(fa.flash_attention_bshd.route_launches)
-    want_routes = {"wgmma": n_attn, "splitkv": n_attn * MIXER_STEPS, "simt": 0}
+    want_routes = {"wgmma": n_attn + n_mla, "splitkv": n_attn * MIXER_STEPS,
+                   "simt": 0}
     gates = {"finite": finite,
              "logits_not_all_zero": all(r["scale"] > 0 for s in steps
                                         for r in s),
              "route_launches": routes == want_routes,
              "layer0_caches": max(cache_err.values()) <= LAYER0_CACHE_TOL,
              "decode_vs_full_f32": all(r["ok"] for s in steps for r in s)}
+    if mla is not None:
+        gates["mla_layer0_vs_plain"] = mla["layer0_attention"]["ok"]
+        gates["mla_control_caught"] = not mla["control"]["ok"]
     held = [r for s in steps for r in s if r["held"]]
-    out = {"arch": arch, "layers": n_layers, "plain_attention_prefill": plain,
+    out = {"arch": arch, "layers": n_layers, "mla_vs_plain": mla,
            "d_model": cfg.d_model, "params": cfg.param_count(),
            "batch": MIXER_BATCH, "prompt": MIXER_PROMPT, "steps": MIXER_STEPS,
            "gates": gates, "route_launches": routes,
@@ -2804,8 +3218,9 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
     leaves std-1 weights and activations of ~1e9, whose rounding the stack
     amplifies past the limit) and tokens: train and prefill logits, three decode steps'
     logits, and the caches after them, each within REDUCED_TOL of its
-    scale.  Attention on the card runs on simt (head dim 8 padded to 64),
-    deepseek's MLA prefill on the plain attention."""
+    scale.  Attention on the card runs on simt (head dim 8 padded to 64,
+    MLA's Dk 16 / Dv 8 too; gemma3's 8-key windows in train and prefill,
+    its 8-slot rings in decode)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2815,7 +3230,6 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
     from repro_torch.tree import leaves_with_path, tree_map
 
     cfg = get_config(arch).reduced()
-    plain = cfg.mla is not None
     p_cpu = init_params(torch.Generator().manual_seed(1), cfg, device="cpu",
                         per_layer=True)
     p_dev = tree_map(lambda t: t.to(dev), p_cpu)
@@ -2827,10 +3241,8 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
         t = toks.to(device)
         out = {}
         with torch.no_grad():
-            out["train"] = forward(cfg, params, t[:, :16],
-                                   plain_attention=plain)[0]
-            lg, caches, _ = forward(cfg, params, t[:, :16], mode="prefill",
-                                    plain_attention=plain)
+            out["train"] = forward(cfg, params, t[:, :16])[0]
+            lg, caches, _ = forward(cfg, params, t[:, :16], mode="prefill")
             out["prefill"] = lg
             caches = grow_cache(cfg, caches, 24)
             for j in range(3):
@@ -2850,10 +3262,11 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
         errs[key] = float((g - w.float()).abs().max()) / max(
             float(w.float().abs().max()), 1e-30)
     n_attn = sum(s.mixer in ("attn", "swa") for s in cfg.layers())
-    want_routes = {"wgmma": 0, "splitkv": 0, "simt": n_attn * 5}
+    n_mla = sum(s.mixer == "mla" for s in cfg.layers())
+    want_routes = {"wgmma": 0, "splitkv": 0, "simt": n_attn * 5 + n_mla * 2}
     ok = (max(errs.values()) <= REDUCED_TOL and routes == want_routes
           and all(bool(torch.isfinite(x).all()) for x in got.values()))
-    return ({"arch": cfg.name, "plain_attention": plain, "ok": ok,
+    return ({"arch": cfg.name, "ok": ok,
              "max_rel_err": max(errs.values()), "rel_err": errs,
              "route_launches": routes, "route_launches_expected": want_routes},
             routes)
@@ -2861,13 +3274,11 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
 
 def phase_mixers(dev, smi: str) -> dict:
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import forward, init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     runs, routes = [], {"wgmma": 0, "splitkv": 0, "simt": 0}
-    for arch, n_layers, plain in MIXER_RUNS:
-        row, r = mixer_run(arch, n_layers, plain, dev)
+    for arch, n_layers in MIXER_RUNS:
+        row, r = mixer_run(arch, n_layers, dev)
         runs.append(row)
         routes = {k: routes[k] + r[k] for k in routes}
     reduced = []
@@ -2876,26 +3287,13 @@ def phase_mixers(dev, smi: str) -> dict:
         reduced.append(row)
         routes = {k: routes[k] + r[k] for k in routes}
 
-    # MLA prefill on the card raises, naming the queue item, unless the
-    # caller asks for the plain attention.
-    cfg = get_config("deepseek-v2-lite-16b").reduced()
-    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    toks = torch.zeros((1, 8), dtype=torch.long, device=dev)
-    try:
-        with torch.no_grad():
-            forward(cfg, params, toks, mode="prefill")
-        mla_refusal = "no error"
-    except NotImplementedError as exc:
-        mla_refusal = str(exc)
     gates = {r["arch"]: all(r["gates"].values()) for r in runs}
     gates.update({f"reduced {r['arch']}": r["ok"] for r in reduced})
-    gates["mla_prefill_raises_item_14"] = "Queue 1 item 14" in mla_refusal
     ok = all(gates.values())
     emit("mixers", ok=ok, nvidia_smi=smi, gates=gates, runs=runs,
          mixer_tol=MIXER_TOL, mixer_check_layers=MIXER_CHECK_LAYERS,
          layer0_cache_tol=LAYER0_CACHE_TOL,
-         reduced=reduced, reduced_tol=REDUCED_TOL,
-         mla_prefill_without_plain=mla_refusal, route_launches=routes)
+         reduced=reduced, reduced_tol=REDUCED_TOL, route_launches=routes)
     if not ok:
         raise SystemExit("mixer check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
@@ -2943,13 +3341,14 @@ def main() -> int:
     train = phase_train(dev, smi)
     encode = phase_encode(dev, smi)
     moe = phase_moe_serve(dev, smi)
+    gemma = phase_gemma_serve(dev, smi)
     mixers = phase_mixers(dev, smi)
 
     main_t, scale_t = kern["timings"]
     t = flash["timings"]
 
     def moe_rows(*keys):
-        """The flash timing rows at qwen2-moe-a2.7b's calls."""
+        """The flash timing rows at one model's calls."""
         return {k: {f: t[k].get(f) for f in (
             "case", "ms", "device_us", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "cold_ms", "library_cold_ms") if f in t[k]}
@@ -2988,45 +3387,58 @@ def main() -> int:
         "at_scale": {"E": E_SCALE, "C": C_MAIN, "surface": scale_t["surface"],
                      "decision": scale_t["decision"]},
         "serve_launches": serve["ttl_launches"],
+        "gemma_serve_launches": gemma["ttl_launches"],
     },
         flash_entry("flash_attention_wgmma", "wgmma", t["wgmma_prefill"],
                     serve["routes"]["wgmma"] + train["wgmma_eval"]
                     + encode["wgmma"] + moe["routes"]["wgmma"]
-                    + mixers["wgmma"],
+                    + gemma["routes"]["wgmma"] + mixers["wgmma"],
                     launches_by_path={"serve": serve["routes"]["wgmma"],
                                       "train_eval": train["wgmma_eval"],
                                       "encode": encode["wgmma"],
                                       "moe_serve": moe["routes"]["wgmma"],
+                                      "gemma_serve": gemma["routes"]["wgmma"],
                                       "mixers": mixers["wgmma"]},
                     qwen2_moe=moe_rows("wgmma_moe_prefill"),
+                    gemma3=moe_rows("wgmma_gemma_prefill"),
+                    nemotron=moe_rows("wgmma_nemotron_prefill"),
+                    deepseek_mla=moe_rows("wgmma_deepseek_prefill"),
                     hubert={k: {f: t[k].get(f) for f in (
                         "case", "ms", "device_us", "plain_ms", "library_ms",
                         "bound_ms", "bound_by")}
                         for k in ("wgmma_hubert", "wgmma_hubert_1000")}),
         flash_entry("flash_attention_splitkv", "splitkv", t["splitkv_decode"],
                     serve["routes"]["splitkv"] + moe["routes"]["splitkv"]
-                    + mixers["splitkv"],
+                    + gemma["routes"]["splitkv"] + mixers["splitkv"],
                     launches_by_path={"serve": serve["routes"]["splitkv"],
                                       "moe_serve": moe["routes"]["splitkv"],
+                                      "gemma_serve":
+                                          gemma["routes"]["splitkv"],
                                       "mixers": mixers["splitkv"]},
                     qwen2_moe=moe_rows("splitkv_moe_decode"),
+                    gemma3=moe_rows("splitkv_gemma_ring_decode",
+                                    "splitkv_gemma_global_decode"),
+                    nemotron=moe_rows("splitkv_nemotron_decode"),
                     decode_8k={k: t["splitkv_decode_8k"][k] for k in
                                ("case", "ms", "device_us", "bound_ms",
                                 "library_ms")}),
         flash_entry("flash_attention", "simt", t["simt_f32"],
                     serve["simt_gate"] + train["simt_launcher_serve"]
-                    + moe["simt_gate"] + mixers["simt"],
+                    + moe["simt_gate"] + gemma["routes"]["simt"]
+                    + mixers["simt"],
                     launches_by_path={
                         "serve_f32_gate": serve["simt_gate"],
                         "launcher_serve_defaults":
                             train["simt_launcher_serve"],
                         "moe_serve_f32_gate": moe["simt_gate"],
+                        "gemma_serve": gemma["routes"]["simt"],
                         "mixers_reduced": mixers["simt"]},
                     launches_note="the f32 gates' forwards, the serve "
                                   "launcher's reduced defaults and the "
                                   "reduced configs' card-vs-CPU runs (head "
                                   "dim 8 padded to 64); it takes no bf16 "
-                                  "call"),
+                                  "call",
+                    d256=moe_rows("simt_d256")),
     ]}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({**RESULT, "summary": summary}, indent=1))

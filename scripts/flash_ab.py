@@ -17,7 +17,9 @@ helpers:
   bf16) on the route the tree's planner picks, and on ``simt`` where the
   tree's ``simt`` takes bf16;
 - the serving prefill on ``wgmma`` (B 4, Hq 32, Hkv 8, S 1024, D 64,
-  causal, bf16);
+  causal, bf16), and qwen2-moe-a2.7b's (B 4, 16 / 16 heads of 128);
+- the serving decode step on ``splitkv`` (B 4, Hq 32, Hkv 8, a 1,056-slot
+  cache at position 1,040, D 64, bf16);
 - scaled_dot_product_attention at each of those shapes, as a yardstick;
 - hubert-xlarge's eval step at full width (48 layers, bf16, seeded random
   weights, B 4 x S 1024 frames from the frontend stub of
@@ -46,6 +48,8 @@ OUT = ROOT / "chiprun_out" / "flash_ab.json"
 F32_GATE = (1, 32, 8, 256, 256, 64, True, 0, "float32")
 HUBERT_ATTN = (4, 16, 16, 1024, 1024, 80, False, 0, "bfloat16")
 SERVE_PREFILL = (4, 32, 8, 1024, 1024, 64, True, 0, "bfloat16")
+SERVE_DECODE = (4, 32, 8, 1, 1056, 64, True, 1040, "bfloat16")
+MOE_PREFILL = (4, 16, 16, 1024, 1024, 128, True, 0, "bfloat16")
 EVAL_BATCH, EVAL_SEQ, EVAL_WARMUP, EVAL_STEPS = 4, 1024, 2, 5
 
 
@@ -144,6 +148,9 @@ def child(tree: Path) -> dict:
             "hubert_simt_bf16": _attention_row(sm, HUBERT_ATTN, "simt", 3),
             "wgmma_serve_prefill": _attention_row(sm, SERVE_PREFILL, "wgmma",
                                                   20),
+            "wgmma_moe_prefill": _attention_row(sm, MOE_PREFILL, "wgmma", 20),
+            "splitkv_serve_decode": _attention_row(sm, SERVE_DECODE,
+                                                   "splitkv", 200),
             "hubert_eval": _eval_step()}
 
 

@@ -10,7 +10,9 @@
 // row of every (batch, query head) it computes
 //
 //   o = softmax(q . k^T) . v      over the keys kpos < kv_len
-//                                 (and kpos <= q_offset + qrow when causal)
+//                                 (and kpos <= q_offset + qrow when causal,
+//                                 and kpos > q_offset + qrow - window when
+//                                 a sliding window is given)
 //
 // with q pre-scaled by d**-0.5 as the TPU kernel does, logits, softmax and
 // accumulation in fp32.  The O(Sq x Skv) score matrix never reaches device
@@ -32,8 +34,9 @@
 // shares every K/V tile and K/V are never repeated.  Four lanes share a set
 // of rows, each a quarter of the columns (float4 chunks interleaved, so the
 // four quarters of a K or V row are 64 contiguous bytes), and a lane holds
-// 4 rows at D 64 (4 FMAs a loaded float; 32 rows a tile) and 2 above (16
-// rows a tile).  Q is pre-scaled and held in registers, and so is the
+// 4 rows at D 64 (4 FMAs a loaded float; 32 rows a tile), 2 at D 80-128
+// (16 rows a tile) and 1 at D 192 / 256 (8 rows a tile: Q and O alone
+// are then 2 x D / 4 registers a lane).  Q is pre-scaled and held in registers, and so is the
 // accumulator.  The 4 warps split the tile's keys: warp w takes KV tiles of
 // 8 keys w, w + 4, ..., each its own, double-buffered in shared memory by
 // cp.async (16 B a lane, zero-filled past kv_len), so the next tile's loads
@@ -44,8 +47,10 @@
 // registers; P . V reads V the same way.  At the end each warp leaves
 // (m, l, o) of its key share in shared memory and the block merges the 4
 // shares in warp order, so results are deterministic.  Tiles wholly above
-// the causal diagonal are never loaded; a tile that crosses it, or kv_len,
-// is masked.  Blocks are issued heaviest first (highest rows of every head
+// the causal diagonal, or wholly below the first row's sliding window, are
+// never loaded; a tile that crosses the diagonal, the window's edge or
+// kv_len is masked.  At D 256 the K/V buffers take 4 warps x 4 x 8 x 256 x
+// 4 B = 128 KB of shared memory (the kernel opts in past 48 KB).  Blocks are issued heaviest first (highest rows of every head
 // first).  At the f32 gate's call that is 256 blocks of 128 threads for
 // 132 SMs, two an SM at a time (registers bound it at D 64), and the
 // heaviest blocks' 8 tiles a warp set the time: a split of those keys over
@@ -80,7 +85,7 @@ constexpr int kKeys = 8;        // keys a KV tile
 template <int D>
 struct Shape {
   static_assert(kKeys * D % 128 == 0, "a tile must be whole float4s for 32 lanes");
-  static constexpr int kRpt = D <= 64 ? 4 : 2;
+  static constexpr int kRpt = D <= 64 ? 4 : D <= 128 ? 2 : 1;
   static constexpr int kRows = 32 / kLanes * kRpt;
   static constexpr int kChunks = D / 16;
   static constexpr int kTile = kKeys * D;                        // floats
@@ -98,6 +103,7 @@ struct Params {
   float* o;
   Strides qs, ks, vs, os;
   int sq, hkv, group, causal, q_offset, kv_len, row_tiles;
+  int win;              // sliding window, 2**30 for none
   float scale;
 };
 
@@ -165,15 +171,18 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
   const float* vbase = p.v + b * p.vs.b + hk * p.vs.h;
 
   int n_tiles = (p.kv_len + kKeys - 1) / kKeys;
+  const int last_qpos = p.q_offset + (min(row0 + S::kRows, n_rows) - 1) / p.group;
   if (p.causal) {  // skip KV tiles wholly above the tile's last query row
-    const int last_qpos = p.q_offset + (min(row0 + S::kRows, n_rows) - 1) / p.group;
     n_tiles = min(n_tiles, last_qpos < 0 ? 0 : last_qpos / kKeys + 1);
   }
   const int first_qpos = p.q_offset + row0 / p.group;
+  // and those wholly below its first row's window
+  const int lo = first_qpos - p.win + 1;
+  const int t_lo = lo > 0 ? min(lo / kKeys, n_tiles) : 0;
 
   float* kbuf = smem + warp * S::kWarpFloats;   // [2][kTile], then V [2][kTile]
   float* vbuf = kbuf + 2 * S::kTile;
-  if (warp < n_tiles) load_tile<D>(kbuf, vbuf, p, kbase, vbase, warp, lane);
+  if (t_lo + warp < n_tiles) load_tile<D>(kbuf, vbuf, p, kbase, vbase, t_lo + warp, lane);
   cp_async_commit();        // the first tile loads while Q does
 
   // This lane's rows: Q pre-scaled, its quarter's columns (chunk c is
@@ -210,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
     for (int c = 0; c < C; ++c) o[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int t = warp, n = 0; t < n_tiles; t += kWarps, ++n) {
+  for (int t = t_lo + warp, n = 0; t < n_tiles; t += kWarps, ++n) {
     const int buf = n & 1;
     if (t + kWarps < n_tiles) {   // the next tile into the other buffer
       load_tile<D>(kbuf + (buf ^ 1) * S::kTile, vbuf + (buf ^ 1) * S::kTile, p, kbase, vbase,
@@ -238,7 +247,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
       }
     }
     const int kv0 = t * kKeys;
-    const bool masked = kv0 + kKeys > p.kv_len || (p.causal && kv0 + kKeys - 1 > first_qpos);
+    const bool masked = kv0 + kKeys > p.kv_len || (p.causal && kv0 + kKeys - 1 > first_qpos) ||
+                        kv0 <= last_qpos - p.win;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       float mx = -INFINITY;
@@ -248,7 +258,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(const Params p) {
         s[i][j] += __shfl_xor_sync(kFullMask, s[i][j], 2);
         if (masked) {
           const int kp = kv0 + j;
-          if (kp >= p.kv_len || (p.causal && kp > qpos[i])) s[i][j] = -INFINITY;
+          if (kp >= p.kv_len || (p.causal && kp > qpos[i]) || kp <= qpos[i] - p.win) {
+            s[i][j] = -INFINITY;
+          }
         }
         mx = fmaxf(mx, s[i][j]);
       }
@@ -354,8 +366,10 @@ cudaError_t launch(Params p, int batch, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry, bound with ctypes.  Returns the cudaError_t of the launch
-// (0 = launched); the wrapper raises on anything else.
+// Plain C entry, bound with ctypes.  Keys [0, kv_len) are live; `window` > 0
+// masks keys at or below a row's position less the window.  Returns the
+// cudaError_t of the launch (0 = launched); the wrapper raises on anything
+// else.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* o,
     int batch, int sq, int hq, int hkv, int d,
@@ -363,8 +377,8 @@ extern "C" int flash_attention(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int causal, int q_offset, int kv_len, float scale, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0) return cudaErrorInvalidValue;
+    int causal, int q_offset, int kv_len, int window, float scale, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || window < 0) return cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -376,6 +390,7 @@ extern "C" int flash_attention(
   p.os = {o_sb, o_ss, o_sh};
   p.sq = sq; p.hkv = hkv; p.group = hq / hkv;
   p.causal = causal; p.q_offset = q_offset; p.kv_len = kv_len;
+  p.win = window > 0 ? window : (1 << 30);
   p.row_tiles = 0;
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -384,6 +399,8 @@ extern "C" int flash_attention(
     case 80: return static_cast<int>(launch<80>(p, batch, s));
     case 96: return static_cast<int>(launch<96>(p, batch, s));
     case 128: return static_cast<int>(launch<128>(p, batch, s));
+    case 192: return static_cast<int>(launch<192>(p, batch, s));
+    case 256: return static_cast<int>(launch<256>(p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,10 +3,12 @@
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention.py for bf16 calls with at most 64 query
-// rows per KV head (Sq * group <= 64: a decode step, or a short chunk).  It
-// computes what flash_prefill_sm90.cu computes (q pre-scaled by d**-0.5 and
-// rounded to bf16, fp32 logits and softmax, output in bf16), with p kept in
-// fp32 for the second product.
+// rows per KV head (Sq * group <= 64: a decode step, or a short chunk), at
+// head dims 64, 80, 96, 128, 192 and 256.  It computes what
+// flash_prefill_sm90.cu computes (q pre-scaled by d**-0.5 and rounded to
+// bf16, fp32 logits and softmax, output in bf16, the keys below kv_len, a
+// causal mask and a sliding window), with p kept in fp32 for the second
+// product.
 //
 // Bound on the H100 (3.35 TB/s HBM3): a decode step of the serving path
 // (B 4, Hkv 8, 1,041 live keys of a 1,056-slot cache, D 64) reads 8.5 MB of
@@ -15,8 +17,10 @@
 // and kept in flight, and only the live keys read.
 //
 // Design.  Kernel 1, grid (splits, B * Hkv), 128 threads: the live keys
-// [0, q_offset + Sq) (not the cache's slots) are cut into `splits`
-// contiguous ranges of whole 64-key tiles, none empty; the host picks the
+// [lo, n_live) (not the cache's slots: n_live is q_offset + Sq when causal,
+// or kv_len; lo is 0, or the least key the first row's window holds) are
+// cut into `splits` contiguous ranges of whole 64-key tiles from lo's tile
+// on, none empty; the host picks the
 // count so the grid has at least two blocks per SM and a block at most four
 // tiles.  A block holds its KV head's query rows (the query group, 4 rows
 // for llama3.2-1b, not a 64-row tile) and streams its range with 16-byte
@@ -24,7 +28,9 @@
 // into rows padded by 16 bytes (conflict-free 16-byte reads).  Scores: each
 // thread holds one key row in registers against rows of q broadcast from
 // shared memory; the softmax runs a warp per row; P.V: each thread owns two
-// output columns of a few rows.  All on the CUDA cores in fp32: at 35 MFLOP
+// output columns of a few rows (D 192 / 256: every thread a column pair,
+// and the key row read from shared memory for each query row rather than
+// held in 128 registers).  All on the CUDA cores in fp32: at 35 MFLOP
 // a step the bytes are the limit.  The block writes its partial (m, l,
 // unnormalised acc) in fp32 to scratch.  Kernel 2, one block per (b, KV
 // head), merges the partials in split order with no atomics, so a decode is
@@ -53,6 +59,8 @@ struct Params {
   float* part_ml;               // [splits, B * Hkv, rows, 2]
   Strides qs, ks, vs;
   int rows, hkv, group, causal, q_offset, n_live, tiles_per_split;
+  int first_tile;               // the live range's first 64-key tile
+  int win;                      // sliding window, 2**30 for none
   float scale;
 };
 
@@ -82,7 +90,7 @@ template <int D>
 struct Tile {
   static constexpr int kStride = D + 8;             // padded row, in bf16
   static constexpr int kChunks = D / 8;             // 16-byte chunks per row
-  static constexpr int kLanes = D / 2 <= 32 ? 32 : 64;   // threads over column pairs
+  static constexpr int kLanes = D / 2 <= 32 ? 32 : D / 2 <= 64 ? 64 : 128;  // column pairs
   static constexpr int kGroups = kThreads / kLanes;      // row groups for P.V
   static constexpr int kBytes = 2 * 2 * kKeys * kStride * 2;  // 2 stages x (K, V)
 };
@@ -112,9 +120,9 @@ __device__ __forceinline__ void load_tile(const Params& p, __nv_bfloat16* kv, in
   }
 }
 
-// RPT: rows of P.V per thread, the least of {1, 2, 8, 32} that covers
+// RPT: rows of P.V per thread, the least of {1, 2, 8, 32, 64} that covers
 // `rows` with Tile<D>::kGroups row groups.
-template <int D, int RPT>
+template <int D, int RPT, bool kWindowed>
 __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(const Params p) {
   using T = Tile<D>;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -128,7 +136,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(const Para
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int split = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.hkv, hk = bh % p.hkv;
-  const int t0 = split * p.tiles_per_split;
+  const int t0 = p.first_tile + split * p.tiles_per_split;
   const int t1 = min(t0 + p.tiles_per_split, (p.n_live + kKeys - 1) / kKeys);
 
   if (t0 < t1) load_tile<D>(p, kv, 0, t0, b, hk);
@@ -164,23 +172,35 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(const Para
     const __nv_bfloat16* ks = kv + (2 * stage) * kKeys * T::kStride;
     const __nv_bfloat16* vs = ks + kKeys * T::kStride;
 
-    // Scores: thread -> key j; rows of one parity.
+    // Scores: thread -> key j; rows of one parity.  Up to D 128 the key row
+    // is held in registers across the rows; above, each row reads it from
+    // shared memory.
     {
       const int j = tid % kKeys, kp = t * kKeys + j;
-      uint4 kr[T::kChunks];
+      const __nv_bfloat16* krow = ks + j * T::kStride;
+      constexpr bool kHold = D <= 128;
+      uint4 kr[kHold ? T::kChunks : 1];
+      if constexpr (kHold) {
 #pragma unroll
-      for (int c = 0; c < T::kChunks; ++c) {
-        kr[c] = *reinterpret_cast<const uint4*>(ks + j * T::kStride + c * 8);
+        for (int c = 0; c < T::kChunks; ++c) {
+          kr[c] = *reinterpret_cast<const uint4*>(krow + c * 8);
+        }
       }
       for (int r = tid / kKeys; r < p.rows; r += kThreads / kKeys) {
         const float* qr = qs + r * D;
         float dot = 0.f;
 #pragma unroll
         for (int c = 0; c < T::kChunks; ++c) {
+          uint4 kc;
+          if constexpr (kHold) {
+            kc = kr[c];
+          } else {
+            kc = *reinterpret_cast<const uint4*>(krow + c * 8);
+          }
           const float4 qa = *reinterpret_cast<const float4*>(qr + 8 * c);
           const float4 qb = *reinterpret_cast<const float4*>(qr + 8 * c + 4);
-          const float2 k0 = flash::unpack_bf16(kr[c].x), k1 = flash::unpack_bf16(kr[c].y);
-          const float2 k2 = flash::unpack_bf16(kr[c].z), k3 = flash::unpack_bf16(kr[c].w);
+          const float2 k0 = flash::unpack_bf16(kc.x), k1 = flash::unpack_bf16(kc.y);
+          const float2 k2 = flash::unpack_bf16(kc.z), k3 = flash::unpack_bf16(kc.w);
           dot = fmaf(qa.x, k0.x, dot);
           dot = fmaf(qa.y, k0.y, dot);
           dot = fmaf(qa.z, k1.x, dot);
@@ -190,8 +210,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(const Para
           dot = fmaf(qb.z, k3.x, dot);
           dot = fmaf(qb.w, k3.y, dot);
         }
-        const bool valid =
-            kp < p.n_live && (!p.causal || kp <= p.q_offset + r / p.group);
+        const int qpos = p.q_offset + r / p.group;
+        const bool valid = kp < p.n_live && (!p.causal || kp <= qpos) &&
+                           (!kWindowed || kp > qpos - p.win);
         ss[r * kKeys + j] = valid ? dot : -INFINITY;
       }
     }
@@ -296,44 +317,58 @@ __global__ void __launch_bounds__(kThreads) flash_decode_merge_kernel(const Merg
   }
 }
 
-template <int D, int RPT>
+template <int D, int RPT, bool kWindowed>
 cudaError_t launch_split(const Params& p, int splits, int bh, cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>(p.rows);
   static size_t configured = 0;  // the largest size the attribute allows so far
   if (bytes > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_split_kernel<D, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_decode_split_kernel<D, RPT, kWindowed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_bytes<D>(kMaxRows)));
     if (err != cudaSuccess) return err;
     configured = smem_bytes<D>(kMaxRows);
   }
-  flash_decode_split_kernel<D, RPT><<<dim3(splits, bh), kThreads, bytes, stream>>>(p);
+  flash_decode_split_kernel<D, RPT, kWindowed><<<dim3(splits, bh), kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+// A kernel without the window's test serves the calls without a window, so
+// they run the same code as before windows were taken.
+template <int D, bool kWindowed>
 cudaError_t dispatch_rows(const Params& p, int splits, int bh, cudaStream_t stream) {
   const int need = (p.rows + Tile<D>::kGroups - 1) / Tile<D>::kGroups;
-  if (need <= 1) return launch_split<D, 1>(p, splits, bh, stream);
-  if (need <= 2) return launch_split<D, 2>(p, splits, bh, stream);
-  if (need <= 8) return launch_split<D, 8>(p, splits, bh, stream);
-  return launch_split<D, 32>(p, splits, bh, stream);
+  if (need <= 1) return launch_split<D, 1, kWindowed>(p, splits, bh, stream);
+  if (need <= 2) return launch_split<D, 2, kWindowed>(p, splits, bh, stream);
+  if (need <= 8) return launch_split<D, 8, kWindowed>(p, splits, bh, stream);
+  if constexpr (Tile<D>::kGroups == 1) {   // D 192 / 256: one row group
+    if (need > 32) return launch_split<D, 64, kWindowed>(p, splits, bh, stream);
+  }
+  return launch_split<D, 32, kWindowed>(p, splits, bh, stream);
+}
+
+template <int D>
+cudaError_t dispatch(const Params& p, bool windowed, int splits, int bh, cudaStream_t stream) {
+  return windowed ? dispatch_rows<D, true>(p, splits, bh, stream)
+                  : dispatch_rows<D, false>(p, splits, bh, stream);
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes: both kernels on `stream`.  part_acc and
 // part_ml are scratch of [splits, B * Hkv, rows, D] and [..., 2] fp32.
-// Returns the cudaError_t of the launches (0 = launched).
+// Split i covers tiles first_tile + i * tiles_per_split, ... of the keys
+// below n_live; `window` > 0 masks keys at or below a row's position less
+// the window.  Returns the cudaError_t of the launches (0 = launched).
 extern "C" int flash_decode(const void* q, const void* k, const void* v, void* o,
                             void* part_acc, void* part_ml, int batch, int sq, int hq, int hkv,
                             int d, long long q_sb, long long q_ss, long long q_sh,
                             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                             long long v_ss, long long v_sh, long long o_sb, long long o_ss,
                             long long o_sh, int causal, int q_offset, int n_live, int splits,
-                            int tiles_per_split, float scale, void* stream) {
+                            int tiles_per_split, int first_tile, int window, float scale,
+                            void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || sq * (hq / hkv) > kMaxRows || splits <= 0 ||
-      batch * hkv > 65535) {
+      batch * hkv > 65535 || first_tile < 0 || window < 0) {
     return cudaErrorInvalidValue;
   }
   Params p;
@@ -352,15 +387,19 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v, void* o
   p.q_offset = q_offset;
   p.n_live = n_live;
   p.tiles_per_split = tiles_per_split;
+  p.first_tile = first_tile;
+  p.win = window > 0 ? window : (1 << 30);
   p.scale = scale;
   const int bh = batch * hkv;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
-    case 64: err = dispatch_rows<64>(p, splits, bh, s); break;
-    case 80: err = dispatch_rows<80>(p, splits, bh, s); break;
-    case 96: err = dispatch_rows<96>(p, splits, bh, s); break;
-    case 128: err = dispatch_rows<128>(p, splits, bh, s); break;
+    case 64: err = dispatch<64>(p, window > 0, splits, bh, s); break;
+    case 80: err = dispatch<80>(p, window > 0, splits, bh, s); break;
+    case 96: err = dispatch<96>(p, window > 0, splits, bh, s); break;
+    case 128: err = dispatch<128>(p, window > 0, splits, bh, s); break;
+    case 192: err = dispatch<192>(p, window > 0, splits, bh, s); break;
+    case 256: err = dispatch<256>(p, window > 0, splits, bh, s); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return static_cast<int>(err);

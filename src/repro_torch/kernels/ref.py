@@ -107,18 +107,30 @@ def mha_ref(
     causal: bool = True,
     scale: float | None = None,
     q_offset: int = 0,
+    window: int | None = None,
+    kv_len: int | None = None,
 ) -> torch.Tensor:
     """Plain softmax attention in fp32, output in q's dtype.  ``q_offset``
-    positions q in the kv timeline (decode: q_offset = kv_len - q_len)."""
+    positions q in the kv timeline (decode: q_offset = kv_len - q_len).
+    Key ``kpos`` is live for the query at ``qpos`` if ``kpos <= qpos`` when
+    causal, ``kpos > qpos - window`` with a window, and ``kpos < kv_len``
+    with a key count; a row with no live key gives zeros, as the kernels'
+    streaming softmax does."""
     sq, d = q.shape[-2], q.shape[-1]
     skv = k.shape[-2]
     scale = (d ** -0.5) if scale is None else scale
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    dead = torch.zeros((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-        kpos = torch.arange(skv, device=q.device)[None, :]
-        logits = logits.masked_fill(kpos > qpos, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
+        dead |= kpos > qpos
+    if window is not None:
+        dead |= kpos <= qpos - window
+    if kv_len is not None:
+        dead |= kpos >= kv_len
+    logits = logits.masked_fill(dead, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).nan_to_num(nan=0.0)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
 
 

@@ -15,11 +15,13 @@ Mamba conv / ssm states, the RWKV state and token shifts) and returns it;
 the reference returns updated copies.  A caller that keeps a cache for
 reuse (the KV tier) decodes on a clone of it.
 
-Attention.  On a CUDA device :func:`apply_attn` sends every attention call
-within the flash kernel's contract (no window, no logit softcap, ``Dk == Dv``
-of at most the largest of :data:`repro_torch.kernels.flash_attention.HEAD_DIMS`,
-smaller ones zero-padded up, decode one token at a time, no gradient needed)
-through the kernel, and raises for any other call: there is no silent plain
+Attention.  On a CUDA device :func:`apply_attn` and :func:`apply_mla` send
+every attention call within the flash kernel's contract (no logit softcap,
+head dims of at most the largest of
+:data:`repro_torch.kernels.flash_attention.HEAD_DIMS`, others zero-padded up
+to the next compiled one, MLA's ``Dv < Dk`` by a zero-padded V, no gradient
+needed) through the kernel -- prefill with its sliding window, decode with
+its key count -- and raise for any other call: there is no silent plain
 path on the card.  ``plain_attention=True`` asks for the plain :func:`_sdpa`
 on purpose: to hold the kernel path against it, and in training, which is
 differentiable only there (the reference trains through ``_sdpa`` too).  On
@@ -40,9 +42,6 @@ from ..kernels.flash_attention import (HEAD_DIMS, flash_attention_bshd,
 
 F32 = torch.float32
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-#: Where the flash kernel's missing cases are queued.
-KERNEL_TODO = "ROADMAP.md Queue 1 item 14"
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -219,41 +218,50 @@ def _sdpa(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return out.to(q.dtype)
 
 
-def _flash(q, k, v, *, causal: bool, q_offset: int, window, softcap: float):
+def _flash(q, k, v, *, causal: bool, q_offset: int, softcap: float,
+           window: Optional[int] = None, kv_len: Optional[int] = None):
     """The flash kernel for a call within its contract; raise otherwise.
 
     The kernels have no backward (nor has the Pallas kernel they replace),
     and their output has no ``grad_fn``: a call that would need one raises
     rather than return a result gradients silently skip.  Training takes
-    the plain attention, as the reference's ``loss_fn`` does.
+    the plain attention, as the reference's ``loss_fn`` does.  No config
+    sets a logit softcap, and the kernels take none.
 
-    A head dim below a compiled one (the reduced configs' 8) is zero-padded
-    up to the smallest entry of :data:`HEAD_DIMS` that holds it: zero
-    columns leave ``Q K^T`` and ``P V`` unchanged, and the softmax scale
-    stays the true ``D``'s.  In decode that pads a copy of the whole cache
-    every step, which is acceptable for the reduced configs only.
+    ``q``, ``k`` have head dim ``Dk`` and ``v`` ``Dv`` (MLA: 192 and 128).
+    All three are zero-padded to the smallest entry of :data:`HEAD_DIMS`
+    that holds both (the reduced configs' 8 to 64, MLA's V to 192): zero
+    columns of Q and K leave ``Q K^T`` unchanged, zero columns of V give
+    zero output columns, which are cut off, and the softmax scale stays
+    ``Dk``'s.  In decode that pads a copy of the whole cache every step,
+    which is acceptable for the reduced configs only.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "the flash kernel has no backward: attention that needs a "
             "gradient takes the plain path (plain_attention=True, as the "
             "train step passes), or run under torch.no_grad()")
-    if window is not None or softcap > 0:
+    if softcap > 0:
         raise NotImplementedError(
-            "the flash kernel takes no sliding window and no logit softcap "
-            f"yet ({KERNEL_TODO}); use device='cpu' for such models")
-    d = q.shape[-1]
-    if d != v.shape[-1] or d > HEAD_DIMS[-1]:
+            "the flash kernel takes no logit softcap (no config sets one); "
+            "use device='cpu' or plain_attention=True for such a model")
+    dk, dv = q.shape[-1], v.shape[-1]
+    d = max(dk, dv)
+    if d > HEAD_DIMS[-1]:
         raise NotImplementedError(
-            f"the flash kernel takes Dk == Dv of at most {HEAD_DIMS[-1]}, not "
-            f"Dk={d}, Dv={v.shape[-1]} ({KERNEL_TODO})")
+            f"the flash kernel takes head dims of at most {HEAD_DIMS[-1]}, "
+            f"not Dk={dk}, Dv={dv}")
     padded = min(x for x in HEAD_DIMS if x >= d)
-    if padded == d:
-        return flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset)
-    q, k, v = (F.pad(t, (0, padded - d)) for t in (q, k, v))
-    out = flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset,
-                               scale=softmax_scale(d))
-    return out[..., :d]
+    masks = dict(causal=causal, q_offset=q_offset, window=window,
+                 kv_len=kv_len)
+    if padded == dk == dv:
+        return flash_attention_bshd(q, k, v, **masks)
+    if padded != dk:
+        q, k = (F.pad(t, (0, padded - dk)) for t in (q, k))
+    if padded != dv:
+        v = F.pad(v, (0, padded - dv))
+    out = flash_attention_bshd(q, k, v, scale=softmax_scale(dk), **masks)
+    return out[..., :dv]
 
 
 def apply_attn(
@@ -275,10 +283,6 @@ def apply_attn(
     kernel = x.is_cuda and not plain_attention
 
     if mode == "decode":
-        if kernel and s != 1:
-            raise NotImplementedError(
-                "decode runs one token per step on the card (the reference "
-                "masks every row of a longer step at pos)")
         newpos = (pos + torch.arange(s, device=x.device))[None, :].expand(b, s)
         q = rotate(cfg, q, newpos)
         k = rotate(cfg, k, newpos)
@@ -287,14 +291,14 @@ def apply_attn(
         slot = (pos % cache_len) if window is not None else pos
         k_cache[:, slot:slot + s] = k.to(k_cache.dtype)
         v_cache[:, slot:slot + s] = v.to(v_cache.dtype)
+        # Ring buffer: every live slot is within the window by
+        # construction; mask only the not-yet-filled slots.  Every row of
+        # a longer step is masked at pos, as in the reference.
+        valid_upto = min(pos, cache_len - 1) if window is not None else pos
         if kernel:
-            # causal at q_offset=pos == the reference's kv_valid=pos mask
-            o = _flash(q, k_cache, v_cache, causal=True, q_offset=pos,
-                       window=window, softcap=cfg.logit_softcap)
+            o = _flash(q, k_cache, v_cache, causal=False, q_offset=pos,
+                       kv_len=valid_upto + 1, softcap=cfg.logit_softcap)
         else:
-            # Ring buffer: every live slot is within the window by
-            # construction; mask only the not-yet-filled slots.
-            valid_upto = min(pos, cache_len - 1) if window is not None else pos
             o = _sdpa(q, k_cache, v_cache, causal=False, window=None,
                       kv_valid=valid_upto, softcap=cfg.logit_softcap)
         new_cache = {"k": k_cache, "v": v_cache}
@@ -358,9 +362,10 @@ def apply_mla(cfg, p, x, positions, spec, mode="train", cache=None, pos=None,
     Decode is the reference's absorbed form: it scores in latent space with
     fp32 einsums and never forms per-head K/V (no kernel computes it; it is
     plain PyTorch on every device).  Train and prefill attend with
-    Dk = nope + rope != Dv, which no flash route takes: on the card they
-    raise (:func:`_flash`, ROADMAP.md Queue 1 item 14) unless the caller
-    asks for the plain attention.
+    Dk = nope + rope (192) against Dv (128): on the card :func:`_flash`
+    zero-pads V to Dk, runs the D 192 kernel at the scale Dk**-0.5 (the
+    reference's) and cuts the output back to Dv columns; ``plain_attention``
+    asks for :func:`_sdpa` instead.
     """
     m = cfg.mla
     b, s, d = x.shape

@@ -21,7 +21,7 @@ import torch
 from repro.kernels import ops as r_ops
 from repro.models import layers as r_layers
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 
 TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -34,6 +34,17 @@ CASES = [
     (2, 2, 2, 200, 200, 80, True, 0, jnp.float32),
     (1, 8, 4, 130, 257, 96, True, 0, jnp.float32),
     (2, 4, 4, 256, 256, 64, True, 0, jnp.bfloat16),
+]
+#: Head dims 192 and 256 (nemotron-4-340b and deepseek's MLA at 192,
+#: gemma3-4b at 256), which the TPU wrapper pads to 256 lanes: f32 and bf16,
+#: causal and not, at an offset.
+LARGE_D_CASES = [
+    (1, 4, 2, 130, 130, 192, True, 0, jnp.float32),
+    (1, 2, 1, 64, 200, 256, False, 0, jnp.float32),
+    (1, 4, 2, 1, 300, 256, True, 299, jnp.float32),
+    (1, 4, 2, 100, 230, 192, True, 130, jnp.bfloat16),
+    (2, 2, 2, 128, 128, 256, True, 0, jnp.bfloat16),
+    (1, 2, 2, 70, 160, 256, False, 0, jnp.bfloat16),
 ]
 
 
@@ -48,7 +59,8 @@ def _qkv(b, hq, hkv, sq, skv, d, seed):
             rng.standard_normal((b, hkv, skv, d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,off,dtype", CASES)
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,off,dtype",
+                         CASES + LARGE_D_CASES)
 def test_plain_op_vs_pallas_kernel(b, hq, hkv, sq, skv, d, causal, off, dtype):
     q, k, v = _qkv(b, hq, hkv, sq, skv, d, seed=b * 31 + sq + skv)
     want = r_ops.flash_attention(
@@ -65,25 +77,38 @@ def test_plain_op_vs_pallas_kernel(b, hq, hkv, sq, skv, d, causal, off, dtype):
                                np.asarray(want, np.float32), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("s,t,pos", [(1, 24, 0), (1, 24, 13), (1, 24, 23),
-                                     (9, 9, None), (16, 40, None)])
-def test_model_calls_map_onto_the_kernels_contract(s, t, pos):
-    """The model's attention calls, as the kernel path makes them, equal the
-    reference's ``_sdpa`` calls: prefill is causal at q_offset 0, a decode
-    step is causal at q_offset=pos over the padded cache, which the
-    reference writes as causal=False, kv_valid=pos."""
+@pytest.mark.parametrize("s,t,pos,window", [
+    (1, 24, 0, None), (1, 24, 13, None), (1, 24, 23, None),
+    (9, 9, None, None), (16, 40, None, None),
+    (1, 16, 40, 16),       # a ring decode after the ring wrapped
+    (1, 16, 9, 16),        # a ring decode before it fills
+    (3, 24, 13, None),     # a decode step of three tokens
+    (40, 40, None, 16),    # a windowed prefill (window < S)
+    (40, 40, None, 45),    # a windowed prefill (window > S)
+])
+def test_model_calls_map_onto_the_kernels_contract(s, t, pos, window):
+    """The model's attention calls, as ``apply_attn``'s kernel path makes
+    them (``layers._flash``), equal the reference's ``_sdpa`` calls:
+    prefill is causal at q_offset 0 with the layer's window; a decode step
+    (of one or more tokens, a ring cache or not) is causal=False with
+    ``kv_len = valid_upto + 1``, which the reference writes as
+    causal=False, kv_valid=valid_upto."""
     rng = np.random.default_rng(s * 100 + t)
     q = rng.standard_normal((2, s, 4, 8)).astype(np.float32)
     k = rng.standard_normal((2, t, 2, 8)).astype(np.float32)
     v = rng.standard_normal((2, t, 2, 8)).astype(np.float32)
     decode = pos is not None
-    mask = (dict(causal=False, kv_valid=pos) if decode
-            else dict(causal=True))
+    if decode:
+        valid = min(pos, t - 1) if window is not None else pos
+        mask = dict(causal=False, kv_valid=valid)
+        call = dict(causal=False, q_offset=pos, kv_len=valid + 1)
+    else:
+        mask = dict(causal=True, window=window)
+        call = dict(causal=True, q_offset=0, window=window)
     want = r_layers._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           **mask)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
-    kernel_path = fa.flash_attention_bshd(tq, tk, tv, causal=True,
-                                          q_offset=pos if decode else 0)
+    kernel_path = layers._flash(tq, tk, tv, softcap=0.0, **call)
     plain_path = layers._sdpa(tq, tk, tv, **mask)
     for got in (kernel_path, plain_path):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -305,3 +330,115 @@ def test_decode_splits_fill_the_card():
         tiles = [-(-(hi - lo) // fa.DECODE_TILE) for lo, hi in ranges]
         assert max(tiles) <= fa.DECODE_MAX_TILES or splits * bh >= 2 * fa.H100_SMS
         assert splits * bh >= min(2 * fa.H100_SMS, bh * -(-n_live // 64))
+
+
+# ---------------------------------------------------------------------------
+# The sliding window and the key count
+# ---------------------------------------------------------------------------
+
+#: (Sq, Skv, q_offset, causal, window, kv_len): windows of 1, of S, above S,
+#: and not a multiple of 64 at an offset; a decode step's key count, one
+#: and three tokens; a window and a key count without the causal mask.
+MASKS = [
+    (40, 40, 0, True, 1, None),
+    (40, 40, 0, True, 40, None),
+    (40, 40, 0, True, 100, None),
+    (70, 200, 130, True, 65, None),
+    (200, 200, 0, True, 129, None),
+    (1, 120, 100, False, None, 101),
+    (3, 120, 100, False, None, 101),
+    (50, 130, 0, False, 77, 110),
+    (16, 300, 200, True, 70, None),
+]
+
+
+@pytest.mark.parametrize("case", MASKS, ids=lambda c: "-".join(map(str, c)))
+def test_masks_equal_the_references_sdpa(case):
+    """``window`` and ``kv_len`` in every plain version (``plain``,
+    ``plain_split_kv`` over several splits, ``ref.mha_ref``) are the
+    reference ``_sdpa``'s ``window`` and ``kv_valid = kv_len - 1`` masks,
+    within 1e-5 in f32."""
+    sq, skv, off, causal, window, kv_len = case
+    rng = np.random.default_rng(sq * 7 + skv)
+    q = rng.standard_normal((2, sq, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, skv, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, skv, 2, 16)).astype(np.float32)
+    want = np.asarray(r_layers._sdpa(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, q_offset=off,
+        kv_valid=None if kv_len is None else kv_len - 1))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    masks = dict(window=window, kv_len=kv_len)
+    got = {"plain": fa.plain(tq, tk, tv, causal, off, **masks),
+           "mha_ref": ref.mha_ref(
+               tq.transpose(1, 2), tk.repeat_interleave(2, 2).transpose(1, 2),
+               tv.repeat_interleave(2, 2).transpose(1, 2), causal=causal,
+               q_offset=off, **masks).transpose(1, 2),
+           "entry": fa.flash_attention_bshd(tq, tk, tv, causal, off,
+                                            **masks)}
+    for splits in (1, 2, 5):
+        got[f"split_kv/{splits}"] = fa.plain_split_kv(tq, tk, tv, causal, off,
+                                                      splits, **masks)
+    for name, out in got.items():
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_masks_are_checked():
+    q = torch.zeros(1, 4, 2, 64)
+    for bad in (dict(window=0), dict(window=-3), dict(kv_len=-1),
+                dict(window=2.5)):
+        with pytest.raises(ValueError):
+            fa.flash_attention_bshd(q, q, q, **bad)
+
+
+@pytest.mark.parametrize("n_live,splits,lo,want", [
+    (2071, 9, 1048, [(1024, 1152), (1152, 1280), (1280, 1408), (1408, 1536),
+                     (1536, 1664), (1664, 1792), (1792, 1920), (1920, 2048),
+                     (2048, 2071)]),
+    (2071, 4, 1048, [(1024, 1344), (1344, 1664), (1664, 1984),
+                     (1984, 2071)]),
+    (300, 3, 200, [(192, 256), (256, 300)]),
+    (300, 1, 0, [(0, 300)]),
+])
+def test_split_ranges_start_at_the_windows_tile(n_live, splits, lo, want):
+    """With a window the splits cover the tiles from the one holding the
+    least live key on; keys below it in that tile are masked."""
+    got = fa.split_ranges(n_live, splits, lo)
+    assert got == want
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+
+
+@pytest.mark.parametrize("shape,causal,off,window,kv_len,want", [
+    # gemma3-4b: windowed prefill, a ring decode (1,024 slots filled), a
+    # global layer's decode at position 2,070 of a 2,080-slot cache
+    ((4, 8, 4, 2048, 2048, 256), True, 0, 1024, None, ("wgmma", 1)),
+    ((4, 8, 4, 1, 1024, 256), False, 2070, None, 1024, ("splitkv", 16)),
+    ((4, 8, 4, 1, 2080, 256), False, 2070, None, 2071, ("splitkv", 17)),
+    # a windowed decode chunk: only the window's tiles are split
+    ((4, 8, 4, 1, 2080, 256), True, 2070, 1024, None, ("splitkv", 17)),
+    # nemotron-4-340b (96 / 8 heads of 192): prefill and decode
+    ((1, 96, 8, 1024, 1024, 192), True, 0, None, None, ("wgmma", 1)),
+    ((1, 96, 8, 1, 1056, 192), True, 1040, None, None, ("splitkv", 17)),
+    # deepseek-v2-lite-16b's MLA prefill (16 heads, Dk 192)
+    ((2, 16, 16, 1024, 1024, 192), True, 0, None, None, ("wgmma", 1)),
+])
+def test_plan_takes_large_head_dims_and_masks(shape, causal, off, window,
+                                              kv_len, want):
+    q, k = _shapes(*shape)
+    assert fa.plan(q, k, causal, off, window=window, kv_len=kv_len) == want
+    route = want[0]
+    fa._check(q, k, k)
+    fa._check_route(route, q, k)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_check_takes_the_new_head_dims(d):
+    q, k = _shapes(1, 4, 2, 128, 128, d)
+    fa._check(q, k, k)
+    for route in ("wgmma", "splitkv"):
+        fa._check_route(route, q[:, :1] if route == "splitkv" else q, k)
+    fa._check_route("simt", q.float(), k.float())
+    wide, _ = _shapes(1, 4, 2, 128, 128, 320)
+    with pytest.raises(ValueError, match="head dim 320"):
+        fa._check(wide, wide[:, :, :2], wide[:, :, :2])

@@ -318,14 +318,23 @@ def test_absorbed_mla_decode_matches_reference():
 
 
 def test_flash_path_refuses_mla_naming_item_14():
-    """MLA's prefill attends with Dk 192 != Dv 128 (reduced: 16 != 8): the
-    flash path raises naming the queue item instead of falling back."""
-    q = torch.zeros((1, 4, 2, 16))
-    v = torch.zeros((1, 4, 2, 8))
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="Queue 1 item 14"):
-        layers._flash(q, q, v, causal=True, q_offset=0, window=None,
-                      softcap=0.0)
+    """MLA's prefill attends with Dk 192 != Dv 128 (reduced: 16 != 8).  The
+    flash path refused it, naming Queue 1 item 14, until that item gave it
+    a zero-padded V; it now takes the call (the plain version of the padded
+    call is the unpadded one's) and refuses only what no kernel takes: a
+    head dim past 256 and a logit softcap."""
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 2, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 4, 2, 8)).astype(np.float32))
+    with torch.no_grad():
+        got = layers._flash(q, q, v, causal=True, q_offset=0, softcap=0.0)
+    torch.testing.assert_close(got, layers._sdpa(q, q, v, causal=True),
+                               rtol=1e-5, atol=1e-5)
+    wide = torch.zeros((1, 4, 2, 320))
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="256"):
+        layers._flash(wide, wide, wide, causal=True, q_offset=0, softcap=0.0)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="softcap"):
+        layers._flash(q, q, v, causal=True, q_offset=0, softcap=30.0)
 
 
 # ---------------------------------------------------------------------------

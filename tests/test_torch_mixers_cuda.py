@@ -12,13 +12,17 @@ card and skips itself without one.  The file imports only the port (no JAX):
   ``topk``, ``cumsum`` and scans against the CPU's).  Their attention runs
   on ``simt`` (head dim 8 padded to 64); deepseek's MLA asks for the plain
   attention.
-- MLA's prefill on the card raises, naming ROADMAP.md Queue 1 item 14,
-  unless the caller passes ``plain_attention=True``.
+- MLA's train and prefill attention (Dk != Dv) on the card go through the
+  ``wgmma`` kernel on a zero-padded V, and match the plain attention's
+  run; deepseek-v2-lite-16b's own call (Dk 192, Dv 128) on ``wgmma``
+  against the plain version.
 - qwen2-moe-a2.7b's attention calls (B 4, 16 / 16 heads of 128, S 1024
   causal; a decode step at 1040 of a 1056-slot cache) on ``wgmma`` and
   ``splitkv`` against the plain version: 2e-2 and 2**-5 of each row's
   largest value, as the other routes' cases.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -26,7 +30,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models import forward, init_params
+from repro_torch.models import forward, init_params, layers
 from repro_torch.serve import grow_cache
 from repro_torch.tree import leaves_with_path, tree_map
 
@@ -90,16 +94,56 @@ def test_reduced_mixers_on_card_match_cpu(card, arch):
 
 
 def test_mla_prefill_on_card_needs_plain_attention(card):
+    """MLA's train and prefill attention (reduced: Dk 16, Dv 8) on the card
+    launch ``wgmma`` once per MLA layer in bf16 (96 query rows a KV head:
+    no decode route; dense MLPs) and give the plain attention's logits within 2**-4 of
+    their scale, bf16 through three layers.  (Before the padded V this
+    call raised; ``plain_attention=True`` still asks for ``_sdpa``.)"""
     cfg = get_config("deepseek-v2-lite-16b").reduced()
-    params = init_params(torch.Generator(device=card).manual_seed(0), cfg)
-    toks = torch.zeros((1, 8), dtype=torch.long, device=card)
+    # dense MLPs in place of the MoE: a bf16 router's near-ties would flip
+    # between the two runs and hide the attention's agreement
+    cfg = dataclasses.replace(
+        cfg, act_dtype="bfloat16", param_dtype="bfloat16",
+        pattern=tuple(dataclasses.replace(s, mlp="swiglu")
+                      for s in cfg.pattern))
+    params = init_params(torch.Generator(device=card).manual_seed(0), cfg,
+                         per_layer=True)
+    toks = torch.randint(0, cfg.vocab, (2, 96),
+                         generator=torch.Generator().manual_seed(3)).to(card)
+    n_mla = sum(s.mixer == "mla" for s in cfg.layers())
     with torch.no_grad():
         for mode in ("train", "prefill"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-                forward(cfg, params, toks, mode=mode)
-            logits = forward(cfg, params, toks, mode=mode,
-                             plain_attention=True)[0]
+            fa.reset_launches()
+            logits = forward(cfg, params, toks, mode=mode)[0]
+            routes = dict(fa.flash_attention_bshd.route_launches)
+            plain = forward(cfg, params, toks, mode=mode,
+                            plain_attention=True)[0]
+            assert routes == {"wgmma": n_mla, "splitkv": 0, "simt": 0}
             assert bool(torch.isfinite(logits).all())
+            err = float((logits.float() - plain.float()).abs().max())
+            assert err <= 2.0 ** -4 * float(plain.float().abs().max())
+
+
+def test_mla_call_at_full_width_on_wgmma(card):
+    """deepseek-v2-lite-16b's prefill attention call (B 2, 16 heads, S 512,
+    Dk 192, Dv 128) through ``layers._flash`` on the D 192 kernel, V
+    zero-padded, against the plain version on the unpadded inputs."""
+    rng = np.random.default_rng(192)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 512, 16, 192))
+                             .astype(np.float32)).to(card, torch.bfloat16)
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((2, 512, 16, 128))
+                         .astype(np.float32)).to(card, torch.bfloat16)
+    fa.reset_launches()
+    with torch.no_grad():
+        got = layers._flash(q, k, v, causal=True, q_offset=0, softcap=0.0)
+    want = layers._sdpa(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bshd.route_launches["wgmma"] == 1
+    assert got.shape == (2, 512, 16, 128)
+    row_max = want.float().abs().amax(dim=-1, keepdim=True)
+    assert bool(((got.float() - want.float()).abs()
+                 <= 2e-2 + 2.0 ** -5 * row_max).all())
 
 
 @pytest.mark.parametrize("case", [

@@ -286,3 +286,50 @@ def test_sdpa_chunks_long_queries_like_the_reference():
     got = layers._sdpa(*(torch.from_numpy(a) for a in (q, k, v)), window=700)
     want = r_layers._sdpa(*(jnp.asarray(a) for a in (q, k, v)), window=700)
     _close(got, want, BLOCK_TOL)
+
+
+@pytest.fixture
+def kernel_path(monkeypatch):
+    """The model's kernel path on the CPU: ``apply_attn`` and ``apply_mla``
+    branch on ``x.is_cuda``; with it true they call ``layers._flash``,
+    whose entry point computes the kernels' plain version on CPU tensors
+    with the same padding, window and key count."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+
+
+ATTENTION_ARCHS = tuple(a for a in COVERED if any(
+    s.mixer in ("attn", "swa", "mla") for s in get_config(a).layers()))
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill"])
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_forward_on_the_kernel_path_matches_reference(carried, kernel_path,
+                                                      arch, mode):
+    """Every config's attention as the card calls the kernels (gemma3's
+    windows, MLA's V zero-padded to Dk, head dim 8 padded to 64) gives the
+    reference's logits and caches within 1e-4 of their scale."""
+    cfg, rp, tp = carried[arch]
+    x = _inputs(cfg, seed=len(arch))
+    want, want_caches, _ = r_forward(cfg, rp, jnp.asarray(x), mode=mode)
+    with torch.no_grad():
+        got, got_caches, _ = forward(cfg, tp, torch.from_numpy(x), mode=mode)
+    _close(got, want, STACK_TOL)
+    for path, t in dict(_flat(got_caches or {})).items():
+        _close(t, dict(_flat(want_caches))[path], STACK_TOL, str(path))
+
+
+def test_mla_prefill_call_with_padded_v_matches_reference():
+    """deepseek-v2-lite-16b's prefill attention call (16 heads, Dk 192 =
+    128 + 64, Dv 128) on the kernel path: V zero-padded to 192, the D 192
+    function at the scale 192**-0.5, the output cut to 128 columns -- the
+    reference's ``_sdpa`` within 1e-5."""
+    rng = np.random.default_rng(192)
+    q, k = (rng.standard_normal((2, 40, 16, 192)).astype(np.float32)
+            for _ in range(2))
+    v = rng.standard_normal((2, 40, 16, 128)).astype(np.float32)
+    want = r_layers._sdpa(*(jnp.asarray(a) for a in (q, k, v)), causal=True)
+    got = layers._flash(*(torch.from_numpy(a) for a in (q, k, v)),
+                        causal=True, q_offset=0, softcap=0.0)
+    assert got.shape == (2, 40, 16, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

@@ -76,8 +76,8 @@ def test_padded_head_dim_keeps_the_true_scale(b, hq, hkv, sq, skv, d, causal,
 
 
 def test_head_dims_above_the_largest_compiled_one_raise():
-    q, k, v = _qkv(1, 2, 2, 4, 4, 192, seed=1)
-    with pytest.raises(NotImplementedError, match="at most 128"):
+    q, k, v = _qkv(1, 2, 2, 4, 4, 320, seed=1)
+    with pytest.raises(NotImplementedError, match="at most 256"):
         layers._flash(q, k, v, causal=True, q_offset=0, window=None,
                       softcap=0.0)
 

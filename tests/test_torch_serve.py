@@ -9,22 +9,27 @@ clock: the port's controller decides in float64 on the CPU, bit for bit as
 the reference's numpy engine.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import LayerSpec as RLayerSpec
 from repro.configs import get_config as r_get_config
 from repro.models import init_params as r_init_params
 from repro.serve import greedy_generate as r_greedy_generate
 from repro.serve import prefill as r_prefill
 from repro.serve import serve_step as r_serve_step
 from repro.serve.kv_tier import KVTierManager as RKVTierManager
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, LayerSpec, get_config
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import params_from_reference
 from repro_torch.serve import greedy_generate
+from repro_torch.serve import prefill as t_prefill
 from repro_torch.serve.kv_tier import KVTierManager
 
 ARCH = "llama3.2-1b"
@@ -194,3 +199,71 @@ def test_kv_tier_decides_as_the_reference(seed):
     for k, e in ref.ctl.edge_ttls.items():
         assert port.ctl.edge_ttls[k].ttl_seconds == e.ttl_seconds
     assert ref.t_even_seconds() == port.t_even_seconds()
+
+
+def _gemma3_like(cfg, spec):
+    """gemma3-4b's reduced config cut to 3 layers at its own head dim 256:
+    two local layers (window 16), then one global; 2 / 1 heads."""
+    local, glob = spec("swa", "swiglu", window=16), spec("attn", "swiglu")
+    return dataclasses.replace(cfg, name="gemma3-like", n_layers=3,
+                               head_dim=256, n_heads=2, n_kv_heads=1,
+                               d_model=64, prefix=(local, local),
+                               pattern=(glob,))
+
+
+@pytest.fixture
+def kernel_path(monkeypatch):
+    """The model's kernel path on the CPU: ``apply_attn`` and ``apply_mla``
+    branch on ``x.is_cuda``; with it true they call ``layers._flash``
+    (head dims padded, the window in prefill, ``kv_len`` in decode), whose
+    entry point computes the kernels' plain version on CPU tensors.  Counts
+    the entry point's calls."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    calls = []
+    entry = fa.flash_attention_bshd
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs)
+        return entry(*args, **kwargs)
+
+    monkeypatch.setattr("repro_torch.models.layers.flash_attention_bshd",
+                        counted)
+    return calls
+
+
+@pytest.mark.parametrize("which", ["gemma3-like", "gemma3-4b"])
+def test_serve_loop_matches_reference_on_the_kernel_path(which, kernel_path):
+    """gemma3's local and global layers through the kernel path's calls: a
+    40-token prompt (past the window: 16, reduced 8) and 6 generated
+    tokens, so the ring caches wrap.  Prefill logits within 1e-4 of their
+    scale of the reference's; the loop's greedy tokens and tier hits
+    equal the reference loop's."""
+    rcfg, cfg = r_get_config("gemma3-4b").reduced(), get_config("gemma3-4b").reduced()
+    if which == "gemma3-like":
+        rcfg, cfg = _gemma3_like(rcfg, RLayerSpec), _gemma3_like(cfg, LayerSpec)
+    rp = r_init_params(jax.random.PRNGKey(0), rcfg)
+    tp = params_from_reference(jax.tree.map(np.asarray, rp), cfg, device="cpu")
+    args = launch_serve.build_parser().parse_args(
+        ["--arch", "gemma3-4b", "--requests", "4", "--batch", "2",
+         "--prompt-len", "40", "--gen", "6"])
+    prompts = launch_serve.make_prompts(cfg, args)
+
+    want, _, _ = r_prefill(rcfg, rp, jnp.asarray(prompts[0].numpy()),
+                           max_len=46)
+    with torch.no_grad():
+        got, _, _ = t_prefill(cfg, tp, prompts[0], max_len=46)
+    err = float(np.abs(got.numpy() - np.asarray(want)).max())
+    assert err <= 1e-4 * float(np.abs(np.asarray(want)).max())
+    windows = {c["window"] for c in kernel_path}
+    assert windows == {None, 16 if which == "gemma3-like" else 8}
+
+    with torch.no_grad():
+        out = launch_serve.serve(cfg, tp, prompts, args.gen,
+                                 KVTierManager(device="cpu"), CPU)
+    ref_toks, hits = _reference_serve(rcfg, rp, [p.numpy().astype(np.int32)
+                                                 for p in prompts], args.gen)
+    assert out["hit"] == hits == [False] * 3 + [True]
+    for g, w in zip(out["tokens"], ref_toks):
+        np.testing.assert_array_equal(g.numpy(), w)
+    decode_calls = [c for c in kernel_path if c["kv_len"] is not None]
+    assert decode_calls and all(not c["causal"] for c in decode_calls)
