@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs twelve
+(one nvcc per source for sm_90a, all started together), then runs thirteen
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -154,6 +154,21 @@ first that fails:
              same function (drop counts equal, an RWKV6 chunk start); the
              five reduced configs (gemma3-4b's windows and rings among them)
              in f32, card against CPU within 1e-4, MLA on the kernel.
+  dist       sharding, the dry-run, the roofline, the pipeline and the
+             examples: a one-rank NCCL group and ``make_host_mesh()``; the
+             GPipe schedule at one stage (S 1, M 4) on llama3.2-1b at full
+             width, B 4 x 1,024, against the sequential train-mode forward
+             (bf16 logits within 2^-5 of their largest magnitude, argmax on
+             99 % of the tokens, both through wgmma), its loss's backward
+             finite and its loss within 2^-7 of the sequential plain run's,
+             and both forwards' ms; the dry-run of llama3.2-1b on every
+             valid shape, gemma3-4b and qwen2-moe-a2.7b on train_4k and
+             decode_32k on the 16 x 16 fake mesh and llama3.2-1b's train_4k
+             on 2 x 16 x 16, on fake CUDA tensors: every cell traced, its
+             per-card bytes under 80 GB and its collective bytes above zero,
+             with its roofline row; and every ``examples/torch_*.py`` on the
+             card at small arguments, exit 0, the serve and quickstart
+             examples' kernel launches counted;
 
 Then it prints the per-kernel summary line, the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -3299,6 +3314,257 @@ def phase_mixers(dev, smi: str) -> dict:
                          + ", ".join(k for k, v in gates.items() if not v))
     return routes
 
+DIST_ARCH = "llama3.2-1b"
+PIPE_BATCH, PIPE_SEQ, PIPE_MB = 4, 1024, 4
+#: The one-stage pipeline runs the same bf16 blocks on the same rows as the
+#: sequential forward, one microbatch of 1 x 1,024 tokens at a time instead
+#: of all 4 x 1,024 at once: only the GEMMs' row counts differ, which may
+#: change cuBLAS's tiling and so the order of the fp32 sums before each
+#: bf16 rounding.  Differences are then a few bf16 ulps of the activations
+#: carried through 16 layers, so the logits are held to 2^-5 of their
+#: largest magnitude and the argmax to agree on 99 % of the tokens.  The
+#: 4-stage numerics (P2P rotations, the reverse pipeline's gradients) are
+#: held on the CPU by tests/test_torch_pipeline.py: NCCL takes one rank per
+#: card, so four stages need four cards.
+PIPE_TOL = 2.0 ** -5
+PIPE_ARGMAX = 0.99
+#: The dry-run's cells (multi_pod, ["arch:shape", ...]), one process a
+#: group, the groups side by side (each cell is one host core's Python
+#: work; the two train cells are the longest).
+DRYRUN_GROUPS = [
+    (False, ["qwen2-moe-a2.7b:train_4k"]),
+    (False, ["gemma3-4b:train_4k", "gemma3-4b:decode_32k"]),
+    (False, ["llama3.2-1b:train_4k", "llama3.2-1b:prefill_32k",
+             "llama3.2-1b:decode_32k", "qwen2-moe-a2.7b:decode_32k"]),
+    (True, ["llama3.2-1b:train_4k"]),
+]
+CARD_BYTES = 80e9
+DRYRUN_TIMEOUT_S = 600
+EXAMPLES = [("torch_quickstart.py", []),
+            ("torch_multicloud_placement.py", ["--objects", "20",
+                                               "--months", "3"]),
+            ("torch_s3_proxy_demo.py", []),
+            ("torch_serve_decode.py", ["--requests", "6", "--gen", "8"]),
+            ("torch_train_100m.py", ["--steps", "4", "--tiny",
+                                     "--checkpoint-every", "2",
+                                     "--fail-at", "3"])]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def pipeline_run(dev) -> dict:
+    """(a) a one-rank NCCL group and its host mesh; (b) the GPipe schedule
+    at one stage against the sequential forward, and its loss's backward."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import (
+        make_pipelined_forward, pipeline_loss_fn, stage_param_sharding)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import cross_entropy, forward, init_params
+    from repro_torch.tree import leaves, unflatten
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        host = make_host_mesh(device="cuda")
+        probe = torch.ones(4, device=dev)
+        dist.all_reduce(probe, group=host.get_group("data"))
+        stage_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+        cfg = get_config(DIST_ARCH)
+        params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (PIPE_BATCH, PIPE_SEQ),
+                             generator=gen, device=dev)
+        labels = torch.randint(0, cfg.vocab, (PIPE_BATCH, PIPE_SEQ),
+                               generator=gen, device=dev)
+        local = stage_param_sharding(stage_mesh, params, 1)
+        fwd = make_pipelined_forward(cfg, stage_mesh, 1, PIPE_MB)
+        with torch.no_grad():
+            fa.reset_launches()
+            pp = fwd(local, toks)
+            torch.cuda.synchronize()
+            pp_routes = dict(fa.flash_attention_bshd.route_launches)
+            fa.reset_launches()
+            seq, _, _ = forward(cfg, params, toks, mode="train")
+            torch.cuda.synchronize()
+            seq_routes = dict(fa.flash_attention_bshd.route_launches)
+            ppf, seqf = pp.float(), seq.float()
+            rel = float((ppf - seqf).abs().max() / seqf.abs().max())
+            agree = float((ppf.argmax(-1) == seqf.argmax(-1)).float().mean())
+            finite = bool(torch.isfinite(ppf).all())
+            del ppf, seqf, pp, seq
+            pp_ms = cuda_ms(lambda: fwd(local, toks), 1, reps=5)
+            seq_ms = cuda_ms(lambda: forward(cfg, params, toks,
+                                             mode="train"), 1, reps=5)
+        flat = [p.detach().requires_grad_(True) for p in leaves(local)]
+        loss = pipeline_loss_fn(cfg, stage_mesh, 1, PIPE_MB)(
+            unflatten(local, flat), {"inputs": toks, "labels": labels})
+        loss.backward()
+        pp_loss = float(loss.detach())
+        grads = [p.grad for p in flat]
+        grads_finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        grad_mass = float(sum(g.float().abs().sum() for g in grads))
+        del loss, grads, flat
+        with torch.no_grad():
+            seq_lg, _, _ = forward(cfg, params, toks, mode="train",
+                                   plain_attention=True)
+            seq_loss = float(cross_entropy(seq_lg, labels))
+        loss_rel = abs(pp_loss - seq_loss) / abs(seq_loss)
+        del seq_lg, params, local
+        torch.cuda.empty_cache()
+        layers = cfg.n_layers
+        gates = {
+            "host_mesh_one_rank": tuple(host.shape) == (1, 1)
+            and float(probe[0]) == 1.0,
+            "pipeline_finite": finite,
+            "pipeline_logits_within_tol": rel <= PIPE_TOL,
+            "pipeline_argmax_agree": agree >= PIPE_ARGMAX,
+            "pipeline_on_wgmma": pp_routes.get("wgmma") == layers * PIPE_MB
+            and seq_routes.get("wgmma") == layers,
+            "pipeline_loss_within_bf16": loss_rel <= 2.0 ** -7,
+            "pipeline_grads_finite_nonzero": grads_finite and grad_mass > 0,
+        }
+        return {"gates": gates, "host_mesh": list(host.shape),
+                "nccl_all_reduce": float(probe[0]),
+                "logits_max_rel": rel, "argmax_agree": agree,
+                "pipe_tol": PIPE_TOL, "routes_pipelined": pp_routes,
+                "routes_sequential": seq_routes,
+                "pipelined_ms": pp_ms, "sequential_ms": seq_ms,
+                "loss": pp_loss, "sequential_loss": seq_loss,
+                "loss_rel": loss_rel,
+                "grad_abs_sum": grad_mass,
+                "wgmma_launches": pp_routes.get("wgmma", 0)
+                + seq_routes.get("wgmma", 0)}
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dryrun() -> list:
+    """(c) the dry-run's cells on the fake 256 / 512-rank meshes, on fake
+    CUDA tensors: ``python -m repro_torch.launch.dryrun`` in one process a
+    group of cells (a mesh is never rebuilt in a process), all started at
+    once."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for k, (multi_pod, cells) in enumerate(DRYRUN_GROUPS):
+        out = OUT.parent / f"dryrun_{k}.json"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--device", "cuda", "--out", str(out)]
+        cmd += [arg for c in cells for arg in ("--cell", c)]
+        cmd += ["--multi-pod"] if multi_pod else []
+        procs.append((out, subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    return procs
+
+
+def finish_dryrun(procs) -> tuple:
+    """The cells' results in ``DRYRUN_GROUPS``' order, and their roofline
+    rows."""
+    from repro_torch.launch import roofline
+
+    results = []
+    for out, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        print(stdout[-3000:], flush=True)
+        if not out.exists():
+            print(stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"dry-run wrote no results (exit "
+                             f"{proc.returncode})")
+        results += json.loads(out.read_text())
+    return results, roofline.roofline_rows(results)
+
+
+def run_examples() -> dict:
+    """(d) every example on the card at small arguments, in this process
+    (their kernel launches counted)."""
+    import runpy
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ttl_scan
+
+    out = {}
+    for script, extra in EXAMPLES:
+        argv = sys.argv
+        sys.argv = [script, *extra, "--device", "cuda"]
+        fa.reset_launches()
+        ttl_scan.ttl_cost_surface.launches = 0
+        t0 = time.perf_counter()
+        code = 0
+        try:
+            runpy.run_path(str(ROOT / "examples" / script),
+                           run_name="__main__")
+        except SystemExit as e:
+            code = e.code or 0
+        finally:
+            sys.argv = argv
+        out[script] = {"exit": code, "seconds": time.perf_counter() - t0,
+                       "flash_routes": dict(fa.flash_attention_bshd.route_launches),
+                       "ttl_scan_launches": ttl_scan.ttl_cost_surface.launches}
+    return out
+
+
+def phase_dist(dev, smi: str) -> dict:
+    """Sharding rules, the dry-run, the roofline and the GPipe pipeline, and
+    the examples (module docstring)."""
+    t0 = time.perf_counter()
+    pipe = pipeline_run(dev)
+    t1 = time.perf_counter()
+    procs = start_dryrun()
+    examples = run_examples()           # while the dry-run traces
+    t2 = time.perf_counter()
+    results, rows = finish_dryrun(procs)
+    t3 = time.perf_counter()
+    ok_cells = [r for r in results if r["ok"]]
+    gates = dict(pipe["gates"])
+    gates["dryrun_every_cell_ok"] = len(ok_cells) == sum(
+        len(cells) for _, cells in DRYRUN_GROUPS)
+    gates["dryrun_bytes_under_card"] = all(
+        r["memory"]["total_hbm_bytes"] < CARD_BYTES for r in ok_cells)
+    gates["dryrun_collectives"] = all(
+        r["hlo"]["collective_bytes"] > 0 for r in ok_cells)
+    gates["examples_exit_0"] = all(e["exit"] == 0 for e in examples.values())
+    ok = all(gates.values())
+    cells = [{"cell": [r["arch"], r["shape"], r["mesh"]], "ok": r["ok"],
+              "error": r["error"][:300], "seconds": r["seconds"],
+              "microbatches": r["microbatches"],
+              "memory": r["memory"],
+              "hlo": {k: r["hlo"].get(k) for k in (
+                  "flops", "bytes", "collective_bytes",
+                  "collective_bytes_by_kind", "peak_bytes", "n_ops")}}
+             for r in results]
+    emit("dist", ok=ok, nvidia_smi=smi, gates=gates, pipeline=pipe,
+         dryrun=cells, roofline=[{k: v for k, v in row.items() if k != "hint"}
+                                 for row in rows],
+         examples=examples, card_bytes=CARD_BYTES,
+         seconds={"pipeline": t1 - t0, "examples": t2 - t1,
+                  "dryrun": t3 - t1, "phase": t3 - t0})
+    if not ok:
+        raise SystemExit("dist check failed: "
+                         + ", ".join(k for k, v in gates.items() if not v))
+    return {"wgmma": pipe["wgmma_launches"],
+            "examples_flash": examples["torch_serve_decode.py"]["flash_routes"],
+            "examples_ttl": sum(e["ttl_scan_launches"]
+                                for e in examples.values())}
+
+
 def main() -> int:
     try:
         import torch
@@ -3343,6 +3609,7 @@ def main() -> int:
     moe = phase_moe_serve(dev, smi)
     gemma = phase_gemma_serve(dev, smi)
     mixers = phase_mixers(dev, smi)
+    dist = phase_dist(dev, smi)
 
     main_t, scale_t = kern["timings"]
     t = flash["timings"]
@@ -3369,11 +3636,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ttl_scan.cu",
         "replaces": "src/repro/kernels/ttl_scan.py:56",
         "launches": (launches + live["launches"] + live["proxy_launches"]
-                     + train["ttl_launches"]),
+                     + train["ttl_launches"] + dist["examples_ttl"]),
         "launches_by_path": {"replay": launches,
                              "live_differential": live["launches"],
                              "live_proxy": live["proxy_launches"],
-                             "train_store": train["ttl_launches"]},
+                             "train_store": train["ttl_launches"],
+                             "examples": dist["examples_ttl"]},
         "max_abs_err": kern["max_abs_err"],
         **{k: main_t["decision"][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "device_us")},
@@ -3392,13 +3660,17 @@ def main() -> int:
         flash_entry("flash_attention_wgmma", "wgmma", t["wgmma_prefill"],
                     serve["routes"]["wgmma"] + train["wgmma_eval"]
                     + encode["wgmma"] + moe["routes"]["wgmma"]
-                    + gemma["routes"]["wgmma"] + mixers["wgmma"],
+                    + gemma["routes"]["wgmma"] + mixers["wgmma"]
+                    + dist["wgmma"] + dist["examples_flash"]["wgmma"],
                     launches_by_path={"serve": serve["routes"]["wgmma"],
                                       "train_eval": train["wgmma_eval"],
                                       "encode": encode["wgmma"],
                                       "moe_serve": moe["routes"]["wgmma"],
                                       "gemma_serve": gemma["routes"]["wgmma"],
-                                      "mixers": mixers["wgmma"]},
+                                      "mixers": mixers["wgmma"],
+                                      "dist_pipeline": dist["wgmma"],
+                                      "examples_serve_decode":
+                                          dist["examples_flash"]["wgmma"]},
                     qwen2_moe=moe_rows("wgmma_moe_prefill"),
                     gemma3=moe_rows("wgmma_gemma_prefill"),
                     nemotron=moe_rows("wgmma_nemotron_prefill"),
@@ -3409,12 +3681,15 @@ def main() -> int:
                         for k in ("wgmma_hubert", "wgmma_hubert_1000")}),
         flash_entry("flash_attention_splitkv", "splitkv", t["splitkv_decode"],
                     serve["routes"]["splitkv"] + moe["routes"]["splitkv"]
-                    + gemma["routes"]["splitkv"] + mixers["splitkv"],
+                    + gemma["routes"]["splitkv"] + mixers["splitkv"]
+                    + dist["examples_flash"]["splitkv"],
                     launches_by_path={"serve": serve["routes"]["splitkv"],
                                       "moe_serve": moe["routes"]["splitkv"],
                                       "gemma_serve":
                                           gemma["routes"]["splitkv"],
-                                      "mixers": mixers["splitkv"]},
+                                      "mixers": mixers["splitkv"],
+                                      "examples_serve_decode":
+                                          dist["examples_flash"]["splitkv"]},
                     qwen2_moe=moe_rows("splitkv_moe_decode"),
                     gemma3=moe_rows("splitkv_gemma_ring_decode",
                                     "splitkv_gemma_global_decode"),
@@ -3425,14 +3700,16 @@ def main() -> int:
         flash_entry("flash_attention", "simt", t["simt_f32"],
                     serve["simt_gate"] + train["simt_launcher_serve"]
                     + moe["simt_gate"] + gemma["routes"]["simt"]
-                    + mixers["simt"],
+                    + mixers["simt"] + dist["examples_flash"]["simt"],
                     launches_by_path={
                         "serve_f32_gate": serve["simt_gate"],
                         "launcher_serve_defaults":
                             train["simt_launcher_serve"],
                         "moe_serve_f32_gate": moe["simt_gate"],
                         "gemma_serve": gemma["routes"]["simt"],
-                        "mixers_reduced": mixers["simt"]},
+                        "mixers_reduced": mixers["simt"],
+                        "examples_serve_decode":
+                            dist["examples_flash"]["simt"]},
                     launches_note="the f32 gates' forwards, the serve "
                                   "launcher's reduced defaults and the "
                                   "reduced configs' card-vs-CPU runs (head "

@@ -3,6 +3,7 @@ sliding-window layers, M-RoPE, encoder-only stacks, MLA, MoE, Mamba and
 RWKV6."""
 
 from .transformer import (  # noqa: F401
+    cache_axes,
     cache_schema,
     cross_entropy,
     forward,
@@ -10,5 +11,6 @@ from .transformer import (  # noqa: F401
     init_params,
     loss_fn,
     model_schema,
+    param_axes,
     params_from_reference,
 )

@@ -3,8 +3,16 @@ sliding-window) and MLA with their decode caches, dense and MoE MLPs, Mamba
 (S6) and RWKV6 mixers -- functional PyTorch over nested dicts of tensors.
 
 The port of ``repro.models.layers``.  Names, parameter schemas and the
-``[B, S, H, D]`` activation layout are the reference's.  Its ``shard(...)``
-annotations are dropped: they do nothing on one card.
+``[B, S, H, D]`` activation layout are the reference's, and so are its
+``shard(...)`` annotations, at the same places with the same logical axes
+(:mod:`repro_torch.distributed.sharding`).  Inside ``use_rules(rules,
+mesh)`` on DTensors they redistribute activations, and :func:`_w` gathers
+each parameter's FSDP shards where the layer uses it (XLA's partitioner
+inserts that all-gather for the reference; DTensor does not).  Outside such
+a context, or on plain tensors, both return their argument unchanged: one
+card, and every test, sees the same numbers as without them.  The flash
+path hands raw pointers to the kernel and never sees a DTensor: a sharded
+run passes ``plain_attention=True``, and :func:`_flash` refuses DTensors.
 
 Numerical contract (the reference's): parameters and activations in
 ``cfg.act_dtype``, every reduction (softmax, norms, scan states, router) in
@@ -37,11 +45,20 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (batch_local, batch_mean, current_rules,
+                                    gather_fsdp, local_of, shard, split_start,
+                                    whole, write_seq)
 from ..kernels.flash_attention import (HEAD_DIMS, flash_attention_bshd,
                                        softmax_scale)
 
 F32 = torch.float32
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _w(param: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A parameter in ``dtype`` at its use, its FSDP shards gathered under
+    a sharding context (:func:`~repro_torch.distributed.sharding.gather_fsdp`)."""
+    return gather_fsdp(param.to(dtype))
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -93,10 +110,10 @@ def apply_norm(p, x, kind: str, eps: float):
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["scale"].float() + p["bias"].float()
+        y = y * _w(p["scale"], F32) + _w(p["bias"], F32)
     else:
         var = (xf ** 2).mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+        y = xf * torch.rsqrt(var + eps) * _w(p["scale"], F32)
     return y.to(x.dtype)
 
 
@@ -173,6 +190,35 @@ _ATTN_CHUNK_THRESHOLD = 4096 * 4096
 _ATTN_CHUNK = 512
 
 
+def _scores(qg, kf, softcap: float):
+    """fp32 logits ``[B, KV, G, S, T]`` of grouped queries ``qg``
+    [B, S, KV, G, D] against fp32 keys ``kf`` [B, T, KV, D], scaled by
+    ``D ** -0.5`` and softcapped."""
+    scale = qg.shape[-1] ** -0.5
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), kf) * scale
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
+
+
+def _masked(logits, *, q0: int, k0: int, causal: bool, window: Optional[int],
+            kv_valid: Optional[int]):
+    """``logits`` [..., rows, keys] with -1e30 where a row may not see a
+    key: rows at absolute positions ``q0 + i``, keys at ``k0 + j``; causal,
+    within the sliding ``window``, and no key past ``kv_valid``."""
+    rows, keys = logits.shape[-2:]
+    qpos = q0 + torch.arange(rows, device=logits.device)[:, None]
+    kpos = k0 + torch.arange(keys, device=logits.device)[None, :]
+    m = torch.ones((rows, keys), dtype=torch.bool, device=logits.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    if kv_valid is not None:
+        m &= kpos <= kv_valid
+    return logits.masked_fill(~m, -1e30)
+
+
 def _sdpa(q, k, v, *, causal: bool = True, window: Optional[int] = None,
           q_offset: int = 0, kv_valid: Optional[int] = None,
           softcap: float = 0.0):
@@ -180,32 +226,32 @@ def _sdpa(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
     q [B,S,H,Dk], k [B,T,KV,Dk], v [B,T,KV,Dv] -> [B,S,H,Dv]; fp32 logits
     and softmax, probabilities rounded to v's dtype before P.V (the
-    reference's contract).  Masks are formed per chunk.
+    reference's contract).  Masks are formed per chunk.  DTensors (a
+    sharded run) go to :func:`_sdpa_sharded`.
     """
+    if getattr(q, "placements", None) is not None:
+        return _sdpa_sharded(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset, kv_valid=kv_valid,
+                             softcap=softcap)
     b, s, h, dk = q.shape
     t, kvh = k.shape[1], k.shape[2]
     group = h // kvh
     dv = v.shape[-1]
-    scale = dk ** -0.5
     qg = q.reshape(b, s, kvh, group, dk)
     kf, vf = k.float(), v.float()
-    kpos = torch.arange(t, device=q.device)[None, :]
 
     def attend(qc, row0: int):
         c = qc.shape[1]
-        logits = torch.einsum("bskgd,btkd->bkgst", qc.float(), kf) * scale
-        if softcap > 0:
-            logits = torch.tanh(logits / softcap) * softcap
-        qpos = (row0 + q_offset
-                + torch.arange(c, device=q.device)[:, None])
-        m = torch.ones((c, t), dtype=torch.bool, device=q.device)
-        if causal:
-            m &= kpos <= qpos
-        if window is not None:
-            m &= kpos > qpos - window
-        if kv_valid is not None:
-            m &= kpos <= kv_valid
-        logits = logits.masked_fill(~m, -1e30)
+        logits = _scores(qc, kf, softcap)
+        rules = current_rules()
+        if rules is not None and rules.get("attn_q"):
+            # Context-parallel scores, only for archs whose head counts
+            # cannot shard over the model axis (the rule table opts in).
+            # The reference's annotation; on DTensors _sdpa_sharded has
+            # split the rows already, and this tile is a local one.
+            logits = shard(logits, ("batch", "kv_heads", None, "attn_q", None))
+        logits = _masked(logits, q0=row0 + q_offset, k0=0, causal=causal,
+                         window=window, kv_valid=kv_valid)
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).float(), vf)
         return out.reshape(b, c, h, dv)
@@ -216,6 +262,113 @@ def _sdpa(q, k, v, *, causal: bool = True, window: Optional[int] = None,
         out = torch.cat([attend(qg[:, i:i + _ATTN_CHUNK], i)
                          for i in range(0, s, _ATTN_CHUNK)], dim=1)
     return out.to(q.dtype)
+
+
+def _sdpa_sharded(q, k, v, *, causal, window, q_offset, kv_valid, softcap):
+    """:func:`_sdpa` on DTensors, computed on each rank's local shards, as
+    XLA's partitioner splits the reference's attention (DTensor cannot: the
+    GQA reshape and the score einsum would merge two split dims).
+
+    Each mesh axis takes one role.  An axis that splits the keys' sequence
+    (a decode cache's ``kv_seq``) keeps them split: the query replicates
+    over it, each rank scores its keys, and the softmax and P.V combine
+    across it as flash-decoding does (all-reduces of the row max, the row
+    sum and the partial output, all q-length sized).  An axis that splits
+    the batch splits q, K and V alike; one that splits q's heads splits K /
+    V's heads too where they divide, else each rank slices the K / V heads
+    its q heads read; one that splits q's rows (or that the ``attn_q`` rule
+    names: context-parallel scores) offsets the masks.  Any other axis
+    replicates all three.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    b, s, h, dk = q.shape
+    kvh = k.shape[2]
+    rules = current_rules() or {}
+    attn_q = rules.get("attn_q")
+    attn_q = (attn_q,) if isinstance(attn_q, str) else tuple(attn_q or ())
+    roles = []
+    for i, (qp, kp) in enumerate(zip(q.placements, k.placements)):
+        if kp.is_shard() and kp.dim == 1:
+            roles.append("kv_seq")
+        elif qp.is_shard() and qp.dim in (0, 1, 2):
+            roles.append(("batch", "q_seq", "heads")[qp.dim])
+        elif names[i] in attn_q and s % mesh.size(i) == 0:
+            roles.append("q_seq")
+        else:
+            roles.append(None)
+
+    def dims(role):
+        return [i for i, r in enumerate(roles) if r == role]
+
+    def size(ds):
+        n = 1
+        for i in ds:
+            n *= mesh.size(i)
+        return n
+
+    heads = dims("heads")
+    hl, group = h // size(heads), h // kvh
+    kv_split = kvh % size(heads) == 0
+    if heads and not kv_split and hl % group and group % hl:
+        for i in heads:                    # no contiguous K / V block
+            roles[i] = None
+        heads, hl = [], h
+    q_to = tuple(Shard({"batch": 0, "q_seq": 1, "heads": 2}[r])
+                 if r in ("batch", "q_seq", "heads") else Replicate()
+                 for r in roles)
+    kv_to = tuple(Shard(0) if r == "batch" else Shard(1) if r == "kv_seq"
+                  else Shard(2) if r == "heads" and kv_split else Replicate()
+                  for r in roles)
+    # A rank's gradient of a replicated q (keys split) or K / V (rows
+    # split, or heads sliced) holds only its part: they sum.
+    q_grad = tuple(Partial() if r == "kv_seq" else p
+                   for r, p in zip(roles, q_to))
+    kv_grad = tuple(Partial() if r == "q_seq" or (r == "heads" and not kv_split)
+                    else p for r, p in zip(roles, kv_to))
+    ql = local_of(q.redistribute(mesh, q_to), q_grad)
+    kl = local_of(k.redistribute(mesh, kv_to), kv_grad)
+    vl = local_of(v.redistribute(mesh, kv_to), kv_grad)
+    if heads and not kv_split:
+        h0 = split_start(mesh, heads, hl)
+        lo, hi = h0 // group, (h0 + hl - 1) // group + 1
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    q_off = q_offset + split_start(mesh, dims("q_seq"), ql.shape[1])
+    kv_dims = dims("kv_seq")
+    if not kv_dims:
+        out = _sdpa(ql, kl, vl, causal=causal, window=window, q_offset=q_off,
+                    kv_valid=kv_valid, softcap=softcap)
+        return DTensor.from_local(out.contiguous(), mesh, q_to,
+                                  run_check=False)
+
+    # Keys split over kv_dims: score the local keys, then combine the
+    # softmax across those axes.
+    sub = mesh[tuple(names[i] for i in kv_dims)]
+
+    def reduce(x, op):
+        part = DTensor.from_local(x, sub, (Partial(op),) * len(kv_dims),
+                                  run_check=False)
+        return part.redistribute(sub, (Replicate(),) * len(kv_dims)).to_local()
+
+    bl, sl, hq, _ = ql.shape
+    kl_h = kl.shape[2]
+    logits = _scores(ql.reshape(bl, sl, kl_h, hq // kl_h, dk), kl.float(),
+                     softcap)
+    logits = _masked(logits, q0=q_off,
+                     k0=split_start(mesh, kv_dims, kl.shape[1]),
+                     causal=causal, window=window, kv_valid=kv_valid)
+    # The softmax over every rank's keys, normalised before P is rounded
+    # to v's dtype, as _sdpa rounds it.
+    top = reduce(logits.detach().amax(-1, keepdim=True), "max")
+    p = torch.exp(logits - top)
+    probs = p / reduce(p.sum(-1, keepdim=True), "sum")
+    o = torch.einsum("bkgst,btkd->bskgd", probs.to(vl.dtype).float(),
+                     vl.float())
+    o = reduce(o, "sum")
+    out = o.reshape(bl, sl, hq, vl.shape[-1]).to(q.dtype).contiguous()
+    return DTensor.from_local(out, mesh, q_to, run_check=False)
 
 
 def _flash(q, k, v, *, causal: bool, q_offset: int, softcap: float,
@@ -236,6 +389,10 @@ def _flash(q, k, v, *, causal: bool, q_offset: int, softcap: float,
     ``Dk``'s.  In decode that pads a copy of the whole cache every step,
     which is acceptable for the reduced configs only.
     """
+    if any(getattr(t, "placements", None) is not None for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash kernel takes plain tensors, not DTensors: a sharded "
+            "run passes plain_attention=True")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "the flash kernel has no backward: attention that needs a "
@@ -276,9 +433,12 @@ def apply_attn(
                  place.
     """
     b, s, d = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    q = torch.einsum("bsd,dhk->bshk", x, _w(p["wq"], x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, _w(p["wk"], x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, _w(p["wv"], x.dtype))
+    q = shard(q, ("batch", "seq", "heads", None))
+    k = shard(k, ("batch", "seq", "kv_heads", None))
+    v = shard(v, ("batch", "seq", "kv_heads", None))
     window = spec.window
     kernel = x.is_cuda and not plain_attention
 
@@ -289,8 +449,10 @@ def apply_attn(
         k_cache, v_cache = cache["k"], cache["v"]
         cache_len = k_cache.shape[1]
         slot = (pos % cache_len) if window is not None else pos
-        k_cache[:, slot:slot + s] = k.to(k_cache.dtype)
-        v_cache[:, slot:slot + s] = v.to(v_cache.dtype)
+        write_seq(k_cache, slot, k.to(k_cache.dtype))
+        write_seq(v_cache, slot, v.to(v_cache.dtype))
+        k_cache = shard(k_cache, ("batch", "kv_seq", "kv_heads", None))
+        v_cache = shard(v_cache, ("batch", "kv_seq", "kv_heads", None))
         # Ring buffer: every live slot is within the window by
         # construction; mask only the not-yet-filled slots.  Every row of
         # a longer step is masked at pos, as in the reference.
@@ -307,6 +469,11 @@ def apply_attn(
             positions = torch.arange(s, device=x.device)[None, :]
         q = rotate(cfg, q, positions)
         k = rotate(cfg, k, positions)
+        # K/V (batch x kv_heads)-sharded and seq-replicated at the
+        # attention boundary, as the reference pins them.
+        k = shard(k, ("batch", None, "kv_heads", None))
+        v = shard(v, ("batch", None, "kv_heads", None))
+        q = shard(q, ("batch", None, "heads", None))
         if kernel:
             o = _flash(q, k, v, causal=cfg.causal, q_offset=0, window=window,
                        softcap=cfg.logit_softcap)
@@ -327,8 +494,9 @@ def apply_attn(
             else:
                 new_cache = {"k": k, "v": v}
 
-    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-    return y, new_cache
+    o = shard(o, ("batch", "seq", "heads", None))
+    y = torch.einsum("bshk,hkd->bsd", o, _w(p["wo"], x.dtype))
+    return shard(y, ("batch", "seq", "d_model")), new_cache
 
 
 def attn_cache_schema(cfg, spec, batch: int, max_len: int) -> Dict[str, Spec]:
@@ -372,9 +540,9 @@ def apply_mla(cfg, p, x, positions, spec, mode="train", cache=None, pos=None,
     h = cfg.n_heads
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
 
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = torch.einsum("bsd,dhk->bshk", x, _w(p["wq"], x.dtype))
     q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-    dkv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"].to(x.dtype))
+    dkv = torch.einsum("bsd,dr->bsr", x, _w(p["w_dkv"], x.dtype))
     c_kv, k_rope = dkv.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
     c_kv = apply_norm({"scale": p["kv_norm"]}, c_kv, "rmsnorm", cfg.norm_eps)
 
@@ -383,12 +551,14 @@ def apply_mla(cfg, p, x, positions, spec, mode="train", cache=None, pos=None,
         q_rope = rotate(cfg, q_rope, newpos)
         k_rope = rotate(cfg, k_rope[:, :, None, :], newpos)[:, :, 0]
         ckv_c, kr_c = cache["ckv"], cache["krope"]
-        ckv_c[:, pos:pos + s] = c_kv.to(ckv_c.dtype)
-        kr_c[:, pos:pos + s] = k_rope.to(kr_c.dtype)
+        write_seq(ckv_c, pos, c_kv.to(ckv_c.dtype))
+        write_seq(kr_c, pos, k_rope.to(kr_c.dtype))
+        ckv_c = shard(ckv_c, ("batch", "kv_seq", None))
+        kr_c = shard(kr_c, ("batch", "kv_seq", None))
         t = ckv_c.shape[1]
         ckv_f = ckv_c.float()
         q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(),
-                             p["w_uk"].float())                   # [B,s,H,R]
+                             _w(p["w_uk"], F32))                   # [B,s,H,R]
         logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv_f)
                   + torch.einsum("bshk,btk->bhst", q_rope.float(),
                                  kr_c.float())) * scale
@@ -397,17 +567,19 @@ def apply_mla(cfg, p, x, positions, spec, mode="train", cache=None, pos=None,
         probs = torch.softmax(logits, dim=-1)
         o_lat = torch.einsum("bhst,btr->bshr", probs, ckv_f)
         o = torch.einsum("bshr,rhv->bshv", o_lat,
-                         p["w_uv"].float()).to(x.dtype)
+                         _w(p["w_uv"], F32)).to(x.dtype)
         new_cache = cache
     else:
         pos_ids = (positions if positions is not None
                    else torch.arange(s, device=x.device)[None, :])
         q_rope = rotate(cfg, q_rope, pos_ids)
         k_rope = rotate(cfg, k_rope[:, :, None, :], pos_ids)
-        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"].to(x.dtype))
-        v = torch.einsum("bsr,rhv->bshv", c_kv, p["w_uv"].to(x.dtype))
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, _w(p["w_uk"], x.dtype))
+        v = torch.einsum("bsr,rhv->bshv", c_kv, _w(p["w_uv"], x.dtype))
         k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)], dim=-1)
         qfull = torch.cat([q_nope, q_rope], dim=-1)
+        qfull = shard(qfull, ("batch", "seq", "heads", None))
+        k = shard(k, ("batch", "seq", "heads", None))
         if x.is_cuda and not plain_attention:
             o = _flash(qfull, k, v, causal=cfg.causal, q_offset=0,
                        window=None, softcap=0.0)
@@ -417,8 +589,9 @@ def apply_mla(cfg, p, x, positions, spec, mode="train", cache=None, pos=None,
         if mode == "prefill":
             new_cache = {"ckv": c_kv, "krope": k_rope[:, :, 0]}
 
-    y = torch.einsum("bshv,hvd->bsd", o, p["wo"].to(x.dtype))
-    return y, new_cache
+    o = shard(o, ("batch", "seq", "heads", None))
+    y = torch.einsum("bshv,hvd->bsd", o, _w(p["wo"], x.dtype))
+    return shard(y, ("batch", "seq", "d_model")), new_cache
 
 
 def mla_cache_schema(cfg, spec, batch: int, max_len: int) -> Dict[str, Spec]:
@@ -447,15 +620,17 @@ def mlp_schema(cfg, kind: str) -> Dict[str, Spec]:
 
 
 def apply_mlp(cfg, p, x, kind: str):
-    h = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
+    h = torch.einsum("bsd,df->bsf", x, _w(p["w_up"], x.dtype))
+    h = shard(h, ("batch", "seq", "d_ff"))
     if kind == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
+        g = torch.einsum("bsd,df->bsf", x, _w(p["w_gate"], x.dtype))
         h = F.silu(g.float()).to(x.dtype) * h
     elif kind == "relu2":      # Nemotron-4 squared-ReLU (Primer)
         h = torch.square(F.relu(h.float())).to(x.dtype)
     else:                      # jax.nn.gelu's default: the tanh form
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(x.dtype))
+    y = torch.einsum("bsf,fd->bsd", h, _w(p["w_down"], x.dtype))
+    return shard(y, ("batch", "seq", "d_model"))
 
 
 # ---------------------------------------------------------------------------
@@ -500,7 +675,7 @@ def moe_route(cfg, p, x) -> MoERoute:
     slot ``cap - 1`` and carries a zero payload."""
     m = cfg.moe
     b, s, _ = x.shape
-    logits = torch.einsum("bsd,de->bse", x.float(), p["router"].float())
+    logits = torch.einsum("bsd,de->bse", x.float(), _w(p["router"], F32))
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, m.top_k, dim=-1)               # [b, s, k]
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -508,6 +683,7 @@ def moe_route(cfg, p, x) -> MoERoute:
     cap = max(cap, min(8, s * m.top_k))
     expert = idx.reshape(b, s * m.top_k)
     onehot = F.one_hot(expert, m.n_routed).float()                # [b, tk, E]
+    onehot = shard(onehot, ("batch", None, None))
     rank = ((onehot.cumsum(1) - onehot) * onehot).sum(-1).long()
     keep = rank < cap
     slot = torch.where(keep, rank, torch.full_like(rank, cap - 1))
@@ -525,38 +701,49 @@ def apply_moe(cfg, p, x):
     dropped pair shares slot ``cap - 1`` with the kept pair there, and its
     zero payload must not overwrite that pair.  Each slot has at most one
     non-zero contributor, so the sum is exact in any order.
+
+    On DTensors the routing, the scatter and the gather run on each rank's
+    own sequences (routing groups are sequences, so nothing crosses ranks),
+    and the expert products on the DTensor buffer as the rules shard it.
     """
     m = cfg.moe
     b, s, d = x.shape
-    route = moe_route(cfg, p, x)
-    bidx = torch.arange(b, device=x.device)[:, None]
-    src = x.repeat_interleave(m.top_k, dim=1)                     # [b, tk, d]
+    xl, wrap = batch_local(x)
+    bl = xl.shape[0]
+    route = moe_route(cfg, {"router": whole(_w(p["router"], F32), x)}, xl)
+    bidx = torch.arange(bl, device=x.device)[:, None]
+    src = xl.repeat_interleave(m.top_k, dim=1)                    # [b, tk, d]
     src = src.masked_fill(~route.keep[..., None], 0)
-    buf = x.new_zeros((b, m.n_routed, route.cap, d))
+    buf = xl.new_zeros((bl, m.n_routed, route.cap, d))
     buf.index_put_((bidx, route.expert, route.slot), src, accumulate=True)
+    buf = shard(wrap(buf), ("batch", "experts", None, None))
 
-    hg = torch.einsum("becd,edf->becf", buf, p["we_gate"].to(x.dtype))
-    hu = torch.einsum("becd,edf->becf", buf, p["we_up"].to(x.dtype))
+    hg = torch.einsum("becd,edf->becf", buf, _w(p["we_gate"], x.dtype))
+    hu = torch.einsum("becd,edf->becf", buf, _w(p["we_up"], x.dtype))
+    hg = shard(hg, ("batch", "experts", None, "expert_ff"))
     h = F.silu(hg.float()).to(x.dtype) * hu
-    eo = torch.einsum("becf,efd->becd", h, p["we_down"].to(x.dtype))
+    eo = torch.einsum("becf,efd->becd", h, _w(p["we_down"], x.dtype))
+    eo = shard(eo, ("batch", "experts", None, None))
 
+    eo, _ = batch_local(eo)
     gathered = eo[bidx, route.expert, route.slot]                 # [b, tk, d]
     gathered = gathered.masked_fill(~route.keep[..., None], 0)
-    combined = (gathered.reshape(b, s, m.top_k, d).float()
-                * route.gates[..., None]).sum(2).to(x.dtype)
+    combined = wrap((gathered.reshape(bl, s, m.top_k, d).float()
+                     * route.gates[..., None]).sum(2).to(x.dtype))
 
     if m.n_shared:
-        g = torch.einsum("bsd,df->bsf", x, p["ws_gate"].to(x.dtype))
-        u = torch.einsum("bsd,df->bsf", x, p["ws_up"].to(x.dtype))
+        g = torch.einsum("bsd,df->bsf", x, _w(p["ws_gate"], x.dtype))
+        u = torch.einsum("bsd,df->bsf", x, _w(p["ws_up"], x.dtype))
         sh_h = F.silu(g.float()).to(x.dtype) * u
         combined = combined + torch.einsum("bsf,fd->bsd", sh_h,
-                                           p["ws_down"].to(x.dtype))
+                                           _w(p["ws_down"], x.dtype))
 
     # load-balance aux loss (Switch): mean_prob * mean_assignment per expert
-    density = route.onehot.reshape(b, s, m.top_k, m.n_routed).sum(2).mean((0, 1))
-    mean_prob = route.probs.mean((0, 1))
+    density = batch_mean(route.onehot.reshape(bl, s, m.top_k, m.n_routed)
+                         .sum(2).mean((0, 1)), x)
+    mean_prob = batch_mean(route.probs.mean((0, 1)), x)
     aux = (density * mean_prob).sum() * m.n_routed * m.router_aux_weight
-    return combined, aux
+    return shard(combined, ("batch", "seq", "d_model")), aux
 
 
 # ---------------------------------------------------------------------------
@@ -613,29 +800,30 @@ def apply_mamba(cfg, p, x, mode="train", cache=None, pos=None):
     d_in = c.expand * d
     dtr = c.dt_rank or -(-d // 16)
 
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
+    xz = torch.einsum("bsd,de->bse", x, _w(p["in_proj"], x.dtype))
+    xz = shard(xz, ("batch", "seq", "d_ff"))
     u, z = xz.chunk(2, dim=-1)
 
     if mode == "decode":
         window = torch.cat([cache["conv"], u], dim=1)   # [B, d_conv, d_in]
         new_conv = window[:, 1:]
-        uc = (torch.einsum("bkd,kd->bd", window.float(), p["conv_w"].float())
-              + p["conv_b"].float())
+        uc = (torch.einsum("bkd,kd->bd", window.float(), _w(p["conv_w"], F32))
+              + _w(p["conv_b"], F32))
         uc = F.silu(uc)[:, None]                        # [B,1,d_in]
     else:
         up = torch.cat([u.new_zeros((b, c.d_conv - 1, d_in)), u], dim=1)
-        uc = sum(up[:, i:i + s].float() * p["conv_w"].float()[i]
-                 for i in range(c.d_conv)) + p["conv_b"].float()
+        uc = sum(up[:, i:i + s].float() * _w(p["conv_w"], F32)[i]
+                 for i in range(c.d_conv)) + _w(p["conv_b"], F32)
         uc = F.silu(uc)
         new_conv = up[:, -(c.d_conv - 1):]
 
-    xdbc = torch.einsum("bse,ef->bsf", uc.to(x.dtype), p["x_proj"].to(x.dtype))
+    xdbc = torch.einsum("bse,ef->bsf", uc.to(x.dtype), _w(p["x_proj"], x.dtype))
     dt, bmat, cmat = xdbc.split([dtr, c.d_state, c.d_state], dim=-1)
     # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x above 20,
     # where log1p(exp(-x)) < 2.1e-9 is below half an fp32 ulp of x.
-    dt = F.softplus(torch.einsum("bsr,re->bse", dt.float(), p["dt_w"].float())
-                    + p["dt_b"].float())                # [B,S,d_in]
-    a = -torch.exp(p["a_log"].float())                  # [d_in, state]
+    dt = F.softplus(torch.einsum("bsr,re->bse", dt.float(), _w(p["dt_w"], F32))
+                    + _w(p["dt_b"], F32))                # [B,S,d_in]
+    a = -torch.exp(_w(p["a_log"], F32))                  # [d_in, state]
     da = torch.exp(dt[..., None] * a)                   # [B,S,d_in,state]
     bx = (dt * uc)[..., None] * bmat.float()[:, :, None, :]
 
@@ -655,9 +843,11 @@ def apply_mamba(cfg, p, x, mode="train", cache=None, pos=None):
         y, new_ssm = _mamba_chunk_scan(da, bx, cf, chunk)
         y = y[:, :s]
 
-    y = y + uc.float() * p["d_skip"].float()
+    y = y + uc.float() * _w(p["d_skip"], F32)
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
+    y = shard(y, ("batch", "seq", "d_ff"))
+    out = torch.einsum("bse,ed->bsd", y, _w(p["out_proj"], x.dtype))
+    out = shard(out, ("batch", "seq", "d_model"))
     if mode == "decode":
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(new_ssm)
@@ -755,25 +945,26 @@ def apply_rwkv6(cfg, p, x, mode="train", cache=None, pos=None):
     prev = cache["shift"] if mode == "decode" else F.pad(x, (0, 0, 1, 0))[:, :s]
     delta = prev - x
     # data-dependent token-shift mixes (5 streams: r,k,v,w,g)
-    lora = torch.tanh(torch.einsum("bsd,dm->bsm", x, p["mix_w1"].to(x.dtype)))
+    lora = torch.tanh(torch.einsum("bsd,dm->bsm", x, _w(p["mix_w1"], x.dtype)))
     lora = lora.reshape(b, s, 5, c.mix_lora)
-    mix = p["mix_mu"].float()[None, None] + torch.einsum(
-        "bsfm,fmd->bsfd", lora.float(), p["mix_w2"].float())
+    mix = _w(p["mix_mu"], F32)[None, None] + torch.einsum(
+        "bsfm,fmd->bsfd", lora.float(), _w(p["mix_w2"], F32))
     xs = x[:, :, None, :].float() + delta[:, :, None, :].float() * mix
     xr, xk, xv, xw, xg = (xs[:, :, i].to(x.dtype) for i in range(5))
 
-    r = torch.einsum("bsd,dhk->bhsk", xr, p["wr"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bhsk", xk, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bhsk", xv, p["wv"].to(x.dtype))
-    g = torch.einsum("bsd,dhk->bhsk", xg, p["wg"].to(x.dtype))
+    r = torch.einsum("bsd,dhk->bhsk", xr, _w(p["wr"], x.dtype))
+    k = torch.einsum("bsd,dhk->bhsk", xk, _w(p["wk"], x.dtype))
+    v = torch.einsum("bsd,dhk->bhsk", xv, _w(p["wv"], x.dtype))
+    g = torch.einsum("bsd,dhk->bhsk", xg, _w(p["wg"], x.dtype))
+    r = shard(r, ("batch", "heads", "seq", None))
 
     dec_lora = torch.tanh(torch.einsum("bsd,dl->bsl", xw.float(),
-                                       p["decay_w1"].float()))
-    decay = p["decay_base"].float()[None, None] + torch.einsum(
-        "bsl,lhk->bshk", dec_lora, p["decay_w2"].float())
+                                       _w(p["decay_w1"], F32)))
+    decay = _w(p["decay_base"], F32)[None, None] + torch.einsum(
+        "bsl,lhk->bshk", dec_lora, _w(p["decay_w2"], F32))
     logw = -torch.exp(decay).transpose(1, 2)            # [B,H,S,K], < 0
 
-    u = p["u"].float()
+    u = _w(p["u"], F32)
     if mode == "decode":
         state = cache["state"].float()                  # [B,H,K,V]
         rf, kf, vf = (t.float()[:, :, 0] for t in (r, k, v))
@@ -803,8 +994,8 @@ def apply_rwkv6(cfg, p, x, mode="train", cache=None, pos=None):
                    o.to(x.dtype), "layernorm", 64e-5)
     o = o * F.silu(g.transpose(1, 2).reshape(b, s, h * kd).float()).to(x.dtype)
     o = o.reshape(b, s, h, kd)
-    y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
-    return y, new_cache
+    y = torch.einsum("bshk,hkd->bsd", o, _w(p["wo"], x.dtype))
+    return shard(y, ("batch", "seq", "d_model")), new_cache
 
 
 def rwkv6_cache_schema(cfg, spec, batch: int, max_len: int) -> Dict[str, Spec]:
@@ -830,13 +1021,14 @@ def rwkv_ffn_schema(cfg) -> Dict[str, Spec]:
 def apply_rwkv_ffn(cfg, p, x, shift_prev=None):
     b, s, d = x.shape
     prev = shift_prev if shift_prev is not None else F.pad(x, (0, 0, 1, 0))[:, :s]
-    mu = p["mu_ff"].float()
+    mu = _w(p["mu_ff"], F32)
     delta = (prev - x).float()
     xk = (x.float() + delta * mu[0]).to(x.dtype)
     xr = (x.float() + delta * mu[1]).to(x.dtype)
-    k = torch.einsum("bsd,df->bsf", xk, p["wk_ff"].to(x.dtype))
+    k = torch.einsum("bsd,df->bsf", xk, _w(p["wk_ff"], x.dtype))
+    k = shard(k, ("batch", "seq", "d_ff"))
     k = torch.square(F.relu(k.float())).to(x.dtype)
-    v = torch.einsum("bsf,fd->bsd", k, p["wv_ff"].to(x.dtype))
+    v = torch.einsum("bsf,fd->bsd", k, _w(p["wv_ff"], x.dtype))
     r = torch.sigmoid(torch.einsum("bsd,de->bse", xr,
-                                   p["wr_ff"].to(x.dtype)).float())
-    return (r * v.float()).to(x.dtype)
+                                   _w(p["wr_ff"], x.dtype)).float())
+    return shard((r * v.float()).to(x.dtype), ("batch", "seq", "d_model"))

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (carried, embed_rows, logsumexp_last, shard,
+                                    take_last)
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -160,6 +162,16 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Params:
         cache_schema(cfg, batch, max_len))
 
 
+def param_axes(cfg):
+    """The logical axes of every parameter, in :func:`model_schema`'s tree."""
+    return _map_specs(lambda _p, sp: sp.axes, model_schema(cfg))
+
+
+def cache_axes(cfg, batch: int, max_len: int):
+    """The logical axes of every cache leaf, in :func:`cache_schema`'s tree."""
+    return _map_specs(lambda _p, sp: sp.axes, cache_schema(cfg, batch, max_len))
+
+
 def params_from_reference(tree, cfg, device="cuda", dtype=None) -> Params:
     """The reference's parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's, on ``device`` in
@@ -205,7 +217,12 @@ def _apply_block(cfg, spec, p, x, positions, mode, cache, pos,
                  plain_attention=False):
     """Pre-norm residual block; returns (x, new_cache, aux_loss), the aux
     loss None for a layer without MoE (the reference's zero)."""
-    h = L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps)
+    # With the residual split over d_model (the Megatron-SP rule), each
+    # sublayer reads it whole: the split is gathered once after the norm,
+    # as XLA's partitioner does for the reference, before the products
+    # that split their outputs over heads or d_ff.
+    h = shard(L.apply_norm(p["norm1"], x, cfg.norm, cfg.norm_eps),
+              ("batch", "seq", None))
     if spec.mixer in ("attn", "swa"):
         y, new_cache = L.apply_attn(cfg, p["mixer"], h, positions, spec,
                                     mode=mode, cache=cache, pos=pos,
@@ -227,7 +244,8 @@ def _apply_block(cfg, spec, p, x, positions, mode, cache, pos,
     x = x + y
 
     aux = None
-    h2 = L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps)
+    h2 = shard(L.apply_norm(p["norm2"], x, cfg.norm, cfg.norm_eps),
+               ("batch", "seq", None))
     if spec.mlp == "moe":
         y2, aux = L.apply_moe(cfg, p["mlp"], h2)
     elif spec.mlp == "rwkv_ffn":
@@ -276,17 +294,19 @@ def forward(
     adt = L.dtype_of(cfg.act_dtype)
     if inputs.dim() == 3:         # precomputed frontend embeddings [B, S, F]
         x = torch.einsum("bsf,fd->bsd", inputs.to(adt),
-                         params["frontend"]["proj"].to(adt))
+                         L._w(params["frontend"]["proj"], adt))
     else:                         # token ids [B, S]
-        x = params["embed"]["w"].to(adt)[inputs]
+        x = embed_rows(L._w(params["embed"]["w"], adt), inputs)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt)
+    x = shard(x, ("batch", "seq", "d_model"))
 
     def block(spec, p, x, cache):
         return _apply_block(cfg, spec, p, x, positions, mode, cache, pos,
                             plain_attention)
 
     if mode == "train" and torch.is_grad_enabled():
-        plain_block = block
+        plain_block = carried(block)          # its recompute may run on
+                                              # autograd's device thread
 
         def block(spec, p, x, cache):
             return checkpoint(plain_block, spec, p, x, cache,
@@ -323,7 +343,7 @@ def forward(
     x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     if return_hidden:
         return x, None, aux
-    logits = _lm_head(cfg, params, x)
+    logits = shard(_lm_head(cfg, params, x), ("batch", "seq", "vocab"))
     if mode == "decode":
         return logits, caches, aux
     return logits, (new_caches if mode == "prefill" else None), aux
@@ -331,10 +351,15 @@ def forward(
 
 def _lm_head(cfg, params, x):
     adt = L.dtype_of(cfg.act_dtype)
+    # Under a sharding context the head reads the whole residual: its
+    # d_model split is gathered first, so the vocab-split product needs no
+    # partial sums over d (the split XLA derives for the reference from
+    # the logits' annotation; DTensor looks no further than this op).
+    x = shard(x, ("batch", "seq", None))
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"]["w"].to(adt))
+        logits = torch.einsum("bsd,vd->bsv", x, L._w(params["embed"]["w"], adt))
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"]["w"].to(adt))
+        logits = torch.einsum("bsd,dv->bsv", x, L._w(params["lm_head"]["w"], adt))
     if cfg.logit_softcap > 0:
         logits = (torch.tanh(logits.float() / cfg.logit_softcap)
                   * cfg.logit_softcap).to(logits.dtype)
@@ -348,8 +373,8 @@ def _lm_head(cfg, params, x):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token NLL in fp32 (stable logsumexp)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    lse = logsumexp_last(lf)
+    gold = take_last(lf, labels)
     return (lse - gold).mean()
 
 
@@ -375,15 +400,16 @@ def loss_fn(cfg, params, batch,
 
     def chunk_nll(h_c, l_c):
         logits = _lm_head(cfg, params, h_c).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, l_c[..., None].long())[..., 0]
+        lse = logsumexp_last(logits)
+        gold = take_last(logits, l_c)
         return (lse - gold).sum()
 
     if s % _LOSS_CHUNK == 0 and s > _LOSS_CHUNK:
         total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        recompute = carried(chunk_nll)
         for i in range(0, s, _LOSS_CHUNK):
             h_c, l_c = hidden[:, i:i + _LOSS_CHUNK], labels[:, i:i + _LOSS_CHUNK]
-            total = total + (checkpoint(chunk_nll, h_c, l_c, use_reentrant=False)
+            total = total + (checkpoint(recompute, h_c, l_c, use_reentrant=False)
                              if torch.is_grad_enabled() else chunk_nll(h_c, l_c))
     else:
         total = chunk_nll(hidden, labels)

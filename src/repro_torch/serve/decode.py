@@ -64,12 +64,15 @@ def prefill(cfg, params, inputs, max_len: Optional[int] = None,
     return logits[:, -1], caches, s
 
 
-def serve_step(cfg, params, caches, tokens, pos: int):
+def serve_step(cfg, params, caches, tokens, pos: int,
+               plain_attention: bool = False):
     """One decode step: tokens [B, 1] (or [B, 1, F] embeddings), ``pos`` the
     cache fill level.  Returns (logits [B, vocab], caches), the caches
-    written in place."""
+    written in place.  ``plain_attention`` as in
+    :func:`repro_torch.models.forward` (the dry-run's sharded trace)."""
     logits, caches, _ = forward(cfg, params, tokens, mode="decode",
-                                caches=caches, pos=pos)
+                                caches=caches, pos=pos,
+                                plain_attention=plain_attention)
     return logits[:, -1], caches
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..distributed.compression import compress_grads_int8, decompress_grads_int8
+from ..distributed.sharding import split_microbatches
 from ..kernels.ops import resolve_device
 from ..models import loss_fn, params_from_reference
 from ..tree import leaves, leaves_with_path, tree_map, unflatten
@@ -64,14 +65,10 @@ def make_train_step(
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state.params
         if microbatches > 1:
-            def split(x):
-                b = x.shape[0]
-                return x.reshape((microbatches, b // microbatches)
-                                 + tuple(x.shape[1:]))
-
-            mb = {k: split(v) for k, v in batch.items()}
-            g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                                   device=p.device), params)
+            mb = {k: split_microbatches(v, microbatches)
+                  for k, v in batch.items()}
+            g_sum = tree_map(lambda p: torch.zeros_like(p, dtype=adt),
+                             params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=leaves(params)[0].device)
             for i in range(microbatches):
