@@ -110,7 +110,13 @@ first that fails:
              it, and a control (the last 64 keys left out) caught; the
              step's ms (median of 10 after 2), frames/s, model-FLOPs share
              and peak memory, and a traced step's device time by kernel and
-             idle share;
+             idle share; then the train step of the configs whose frontend
+             never reads ``embed/w`` (hubert-xlarge at full width and depth,
+             qwen2-vl-7b at full width cut to 2 layers; bf16, AdamW with an
+             f32 master, B 4 x 1,024 frames, 3 steps): finite losses,
+             ``embed/w`` and its state (m, v, the f32 master) after each
+             step bit-equal to the optimizer's update of them from a zero
+             gradient, step ms and peak memory;
   moe_serve  the MoE serving path: ``repro_torch.launch.serve`` with
              qwen2-moe-a2.7b at full width and depth (24 layers, d 2048, 16
              / 16 heads of 128, 60 routed experts top-4 + 4 shared, bf16,
@@ -163,10 +169,14 @@ first that fails:
              finite and its loss within 2^-7 of the sequential plain run's,
              and both forwards' ms; the dry-run of llama3.2-1b on every
              valid shape, gemma3-4b and qwen2-moe-a2.7b on train_4k and
-             decode_32k on the 16 x 16 fake mesh and llama3.2-1b's train_4k
-             on 2 x 16 x 16, on fake CUDA tensors: every cell traced, its
-             per-card bytes under 80 GB and its collective bytes above zero,
-             with its roofline row; and every ``examples/torch_*.py`` on the
+             decode_32k, hubert-xlarge's and nemotron-4-340b's train_4k,
+             nemotron-4-340b's and jamba-v0.1-52b's prefill_32k and
+             rwkv6-3b's train_4k on the 16 x 16 fake mesh and
+             llama3.2-1b's train_4k on 2 x 16 x 16, on fake CUDA tensors,
+             traced on the host's other cores from the start of the run:
+             every cell traced within 600 s, its per-card bytes under 80 GB
+             and its collective bytes above zero, with its roofline row;
+             and every ``examples/torch_*.py`` on the
              card at small arguments, exit 0, the serve and quickstart
              examples' kernel launches counted;
 
@@ -2337,6 +2347,88 @@ def phase_train(dev, smi: str) -> dict:
 ENCODE_ARCH = "hubert-xlarge"
 #: 4 rows of 1024 frames: ~20 s of audio a row at HuBERT's 50 frames/s.
 ENCODE_BATCH, ENCODE_SEQ, ENCODE_WARMUP, ENCODE_STEPS = 4, 1024, 2, 10
+#: The frontend configs' train steps (ROADMAP Queue 3 (k)): (arch, layers,
+#: why cut), bf16 with AdamW's f32 master, B 4 x 1,024 frames, 3 steps.
+#: hubert-xlarge at full depth (~15 GB of parameters and state);
+#: qwen2-vl-7b's state (~7.6e9 parameters x 16 B) does not fit a card at
+#: its 28 layers, so it runs at full width cut to 2.
+FRONTEND_TRAIN = [("hubert-xlarge", None, None),
+                  ("qwen2-vl-7b", 2, "7.6e9 parameters x 16 B of AdamW "
+                                     "state do not fit 80 GB")]
+FRONTEND_TRAIN_STEPS = 3
+
+
+def frontend_train(arch: str, n_layers, dev) -> dict:
+    """(k) ``make_train_step`` for a config whose frontend never reads
+    ``embed/w``: finite losses, and ``embed/w`` and its optimizer state
+    after every step bit-equal to the optimizer's own update of them from
+    a zero gradient on the same tensors (the reference's
+    ``value_and_grad`` gives it zero).  The bf16 leaf itself does not move
+    at this learning rate (the decay, 3e-5 of it a step, is below a bf16
+    step); its f32 master does."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import frontend_frames
+    from repro_torch.models import init_params
+    from repro_torch.train import (init_train_state, make_optimizer,
+                                   make_train_step)
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    _, opt = make_optimizer(cfg.optimizer, lr=3e-4, warmup_steps=1)
+    state = init_train_state(cfg, params, opt)
+    del params
+    step = make_train_step(cfg, opt)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab, (ENCODE_BATCH, ENCODE_SEQ + 1)).astype(np.int32)
+    batch = {"inputs": torch.from_numpy(
+                 frontend_frames(cfg, toks[:, :-1])).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+    losses, step_s, embed_rule, master_moved = [], [], [], []
+    for _ in range(FRONTEND_TRAIN_STEPS):
+        master = state.opt_state.get("master", state.params)["embed"]["w"]
+        master = master.clone()
+        zero = {"embed": {"w": torch.zeros_like(state.params["embed"]["w"])}}
+        sub = {k: {"embed": v["embed"]} for k, v in state.opt_state.items()}
+        with torch.no_grad():
+            want, want_state = opt.update({"embed": state.params["embed"]},
+                                          zero, sub, state.step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        # the bf16 leaf and every state leaf of it (m, v, the f32 master)
+        embed_rule.append(torch.equal(
+            state.params["embed"]["w"], want["embed"]["w"]) and all(
+            torch.equal(state.opt_state[k]["embed"]["w"], v["embed"]["w"])
+            for k, v in want_state.items()))
+        master_moved.append(not torch.equal(
+            state.opt_state.get("master", state.params)["embed"]["w"],
+            master))
+        del want, want_state, zero, sub, master
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "frontend": cfg.frontend, "optimizer": cfg.optimizer,
+            "dtype": cfg.param_dtype, "params": cfg.param_count(),
+            "batch": ENCODE_BATCH, "seq": ENCODE_SEQ, "losses": losses,
+            "step_s": step_s, "step_ms_last": 1e3 * step_s[-1],
+            "peak_memory_bytes": peak,
+            "embed_equals_zero_grad_rule": embed_rule,
+            "embed_master_moved_by_decay": master_moved,
+            "gates": {"finite": all(math.isfinite(x) for x in losses),
+                      "embed_zero_grad_rule": all(embed_rule),
+                      "embed_master_decays": any(master_moved)}}
 
 
 def encode_flops(cfg, batch: int, seq: int) -> float:
@@ -2457,6 +2549,12 @@ def phase_encode(dev, smi: str) -> dict:
     gates["loss_kernel_vs_f32"] = (math.isfinite(l_kernel)
                                    and abs(l_kernel - l_f32) <= limit)
 
+    trains = [dict(frontend_train(arch, n_layers, dev), depth_cut=why)
+              for arch, n_layers, why in FRONTEND_TRAIN]
+    for row in trains:
+        for name, ok_ in row["gates"].items():
+            gates[f"train {row['arch']} {name}"] = ok_
+
     flops = encode_flops(cfg, ENCODE_BATCH, ENCODE_SEQ)
     ok = all(gates.values())
     emit("encode", ok=ok, nvidia_smi=smi, gates=gates, arch=cfg.name,
@@ -2478,7 +2576,7 @@ def phase_encode(dev, smi: str) -> dict:
          model_flops_per_step=flops,
          mfu_of_989e12=flops / median_s / BF16_OPS_PER_S,
          peak_memory_bytes=peak, attention_device_us_traced_step=attention_us,
-         traced_step=prof)
+         traced_step=prof, train_steps=trains)
     if not ok:
         raise SystemExit("encoder path check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
@@ -3330,15 +3428,25 @@ PIPE_TOL = 2.0 ** -5
 PIPE_ARGMAX = 0.99
 #: The dry-run's cells (multi_pod, ["arch:shape", ...]), one process a
 #: group, the groups side by side (each cell is one host core's Python
-#: work; the two train cells are the longest).
+#: work; the train cells are the longest).  The last four groups are the
+#: cells the repairs of ROADMAP Queue 3 (k)-(o) opened: a frontend's train
+#: step, nemotron-4-340b's memory and the Mamba / RWKV6 scans.
 DRYRUN_GROUPS = [
     (False, ["qwen2-moe-a2.7b:train_4k"]),
-    (False, ["gemma3-4b:train_4k", "gemma3-4b:decode_32k"]),
+    (False, ["gemma3-4b:train_4k", "gemma3-4b:decode_32k",
+             "hubert-xlarge:train_4k"]),
     (False, ["llama3.2-1b:train_4k", "llama3.2-1b:prefill_32k",
              "llama3.2-1b:decode_32k", "qwen2-moe-a2.7b:decode_32k"]),
     (True, ["llama3.2-1b:train_4k"]),
+    (False, ["nemotron-4-340b:train_4k"]),
+    (False, ["nemotron-4-340b:prefill_32k"]),
+    (False, ["jamba-v0.1-52b:prefill_32k"]),
+    (False, ["rwkv6-3b:train_4k"]),
 ]
 CARD_BYTES = 80e9
+#: The most one cell's trace may take (its own ``seconds``).  The groups
+#: start before the first phase, at the lowest CPU priority, and trace on
+#: the host's other cores while the card's phases run.
 DRYRUN_TIMEOUT_S = 600
 EXAMPLES = [("torch_quickstart.py", []),
             ("torch_multicloud_placement.py", ["--objects", "20",
@@ -3452,7 +3560,7 @@ def start_dryrun() -> list:
     """(c) the dry-run's cells on the fake 256 / 512-rank meshes, on fake
     CUDA tensors: ``python -m repro_torch.launch.dryrun`` in one process a
     group of cells (a mesh is never rebuilt in a process), all started at
-    once."""
+    once, niced so the card's phases keep their host core."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -3465,21 +3573,30 @@ def start_dryrun() -> list:
                "--device", "cuda", "--out", str(out)]
         cmd += [arg for c in cells for arg in ("--cell", c)]
         cmd += ["--multi-pod"] if multi_pod else []
-        procs.append((out, subprocess.Popen(
-            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)))
+        procs.append((out, len(cells), time.perf_counter(), subprocess.Popen(
+            ["nice", "-n", "19", *cmd], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
     return procs
+
+
+def stop_dryrun(procs) -> None:
+    """Kill any dry-run process still running (a phase failed first)."""
+    for _out, _n, _t0, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def finish_dryrun(procs) -> tuple:
     """The cells' results in ``DRYRUN_GROUPS``' order, and their roofline
-    rows."""
+    rows.  A group gets ``DRYRUN_TIMEOUT_S`` a cell from its start."""
     from repro_torch.launch import roofline
 
     results = []
-    for out, proc in procs:
+    for out, n_cells, t0, proc in procs:
+        left = t0 + n_cells * DRYRUN_TIMEOUT_S - time.perf_counter()
         try:
-            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            stdout, stderr = proc.communicate(timeout=max(left, 1.0))
         except subprocess.TimeoutExpired:
             proc.kill()
             stdout, stderr = proc.communicate()
@@ -3487,7 +3604,7 @@ def finish_dryrun(procs) -> tuple:
         if not out.exists():
             print(stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"dry-run wrote no results (exit "
-                             f"{proc.returncode})")
+                             f"{proc.returncode}): {out.name}")
         results += json.loads(out.read_text())
     return results, roofline.roofline_rows(results)
 
@@ -3521,13 +3638,13 @@ def run_examples() -> dict:
     return out
 
 
-def phase_dist(dev, smi: str) -> dict:
-    """Sharding rules, the dry-run, the roofline and the GPipe pipeline, and
-    the examples (module docstring)."""
+def phase_dist(dev, smi: str, procs) -> dict:
+    """Sharding rules, the dry-run (its processes ``procs`` started before
+    the first phase), the roofline and the GPipe pipeline, and the examples
+    (module docstring)."""
     t0 = time.perf_counter()
     pipe = pipeline_run(dev)
     t1 = time.perf_counter()
-    procs = start_dryrun()
     examples = run_examples()           # while the dry-run traces
     t2 = time.perf_counter()
     results, rows = finish_dryrun(procs)
@@ -3538,6 +3655,8 @@ def phase_dist(dev, smi: str) -> dict:
         len(cells) for _, cells in DRYRUN_GROUPS)
     gates["dryrun_bytes_under_card"] = all(
         r["memory"]["total_hbm_bytes"] < CARD_BYTES for r in ok_cells)
+    gates["dryrun_each_cell_within_timeout"] = all(
+        r["seconds"] <= DRYRUN_TIMEOUT_S for r in results)
     gates["dryrun_collectives"] = all(
         r["hlo"]["collective_bytes"] > 0 for r in ok_cells)
     gates["examples_exit_0"] = all(e["exit"] == 0 for e in examples.values())
@@ -3554,8 +3673,11 @@ def phase_dist(dev, smi: str) -> dict:
          dryrun=cells, roofline=[{k: v for k, v in row.items() if k != "hint"}
                                  for row in rows],
          examples=examples, card_bytes=CARD_BYTES,
+         dryrun_timeout_s=DRYRUN_TIMEOUT_S,
          seconds={"pipeline": t1 - t0, "examples": t2 - t1,
-                  "dryrun": t3 - t1, "phase": t3 - t0})
+                  "dryrun_wait_after_examples": t3 - t2,
+                  "dryrun_since_start": t3 - procs[0][2],
+                  "phase": t3 - t0})
     if not ok:
         raise SystemExit("dist check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
@@ -3598,18 +3720,22 @@ def main() -> int:
          build_s=time.perf_counter() - t0,
          nvcc_s={lib.name: lib.seconds for lib in libraries})
 
-    kern = phase_kernels(dev)
-    phase_decisions(dev)
-    launches = phase_replay(dev)
-    live = phase_live(dev)
-    flash = phase_flash(dev)
-    serve = phase_serve(dev)
-    train = phase_train(dev, smi)
-    encode = phase_encode(dev, smi)
-    moe = phase_moe_serve(dev, smi)
-    gemma = phase_gemma_serve(dev, smi)
-    mixers = phase_mixers(dev, smi)
-    dist = phase_dist(dev, smi)
+    procs = start_dryrun()            # host-only work, beside the phases
+    try:
+        kern = phase_kernels(dev)
+        phase_decisions(dev)
+        launches = phase_replay(dev)
+        live = phase_live(dev)
+        flash = phase_flash(dev)
+        serve = phase_serve(dev)
+        train = phase_train(dev, smi)
+        encode = phase_encode(dev, smi)
+        moe = phase_moe_serve(dev, smi)
+        gemma = phase_gemma_serve(dev, smi)
+        mixers = phase_mixers(dev, smi)
+        dist = phase_dist(dev, smi, procs)
+    finally:
+        stop_dryrun(procs)
 
     main_t, scale_t = kern["timings"]
     t = flash["timings"]

@@ -259,6 +259,63 @@ def _redistribute(x, mesh, placements):
     return x.redistribute(mesh, want)
 
 
+def placed_like(x, like):
+    """``x`` in ``like``'s placements: a DTensor gradient redistributed to
+    its parameter's (a partial sum reduce-scattered where the parameter is
+    split).  A plain ``x``, or one placed so already, comes back as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or tuple(x.placements) == tuple(
+            like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def local_like(like, *pairs):
+    """For each ``(x, dims)`` of ``pairs``, x's dim ``j`` spanning
+    ``like``'s dim ``dims[j]``: the part of ``x`` that lines up with
+    ``like``'s local shard -- split as ``like`` splits those dims, whole
+    along the others -- as a plain tensor.  Math on these broadcasts as it
+    would on whole tensors, in ``like``'s placement (DTensor broadcasts in
+    one of its own choosing).  A plain ``like``: the x's as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(like, DTensor):
+        return tuple(x for x, _ in pairs)
+    out = []
+    for x, dims in pairs:
+        dims = list(dims)
+        want = tuple(Shard(dims.index(p.dim)) if p.is_shard() and p.dim in dims
+                     else Replicate() for p in like.placements)
+        out.append(x.redistribute(like.device_mesh, want).to_local())
+    return tuple(out)
+
+
+def from_local_like(t, like):
+    """``t``, computed on ``like``'s local shard, as a DTensor placed as
+    ``like`` is; with a plain ``like``, ``t`` itself."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(like, DTensor):
+        return t
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``.  A DTensor ``x`` computes it on
+    its local shard and keeps its placements (a pending partial sum is
+    reduced first): torch 2.11's DTensor has no rule for some elementwise
+    ops (``softplus``) and replicates their operand to run them."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return fn(x)
+    x = _resolve_partial(x)
+    return DTensor.from_local(fn(local_of(x)), x.device_mesh, x.placements,
+                              run_check=False)
+
+
 def write_seq(cache, start: int, new) -> None:
     """``cache[:, start:start + S] = new`` in place, for ``new`` [B, S, ...]:
     a decode step's cache write.  On a DTensor cache whose sequence dim is

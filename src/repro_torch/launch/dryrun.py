@@ -48,7 +48,7 @@ from ..configs import (
     get_config, get_shape,
 )
 from ..distributed.sharding import (
-    base_rules, long_context_rules, placements_for, use_rules,
+    base_rules, long_context_rules, placements_for, shard, use_rules,
 )
 from ..kernels.ops import resolve_device
 from ..models import forward, param_axes, cache_axes
@@ -240,14 +240,20 @@ def trace_prefill(cfg, shape, mesh, rules, device):
     _, params = _params(cfg, mesh, rules, device, serving=True)
     inputs = _inputs(cfg, shape, mesh, rules, device)["inputs"]
 
+    c_axes = cache_axes(cfg, shape.global_batch, shape.seq_len)
+
     def run():
+        # The outputs leave in the reference's out_shardings: the logits
+        # over ("batch", "vocab") (an encoder's over its sequence too), the
+        # caches over ``cache_axes``; any reshard they need is counted.
         if cfg.encoder_only:
             logits, _, _ = forward(cfg, params, inputs, mode="train",
-                                   plain_attention=True)
-            return logits
+                                   remat=False, plain_attention=True)
+            return shard(logits, ("batch", "seq", "vocab"))
         logits, caches, _ = forward(cfg, params, inputs, mode="prefill",
                                     plain_attention=True)
-        return logits[:, -1], caches
+        return (shard(logits[:, -1], ("batch", "vocab")),
+                tree_map(shard, caches, c_axes))
 
     return run, (params, inputs), 1
 

@@ -39,15 +39,18 @@ the CPU attention is :func:`_sdpa`, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import (batch_local, batch_mean, current_rules,
-                                    gather_fsdp, local_of, shard, split_start,
-                                    whole, write_seq)
+from ..distributed.sharding import (_partial_where, batch_local, batch_mean,
+                                    current_rules, elementwise, gather_fsdp,
+                                    local_of, shard, split_start, whole,
+                                    write_seq)
 from ..kernels.flash_attention import (HEAD_DIMS, flash_attention_bshd,
                                        softmax_scale)
 
@@ -104,15 +107,25 @@ def norm_schema(d: int, kind: str) -> Dict[str, Spec]:
     return s
 
 
+def _mean_last(t):
+    """``t.mean(-1, keepdim=True)``.  A DTensor (the residual split over
+    d_model) takes it as a sum divided by the size: DTensor's mean leaves
+    an averaging partial, and the summing partial its gradient arrives as
+    cannot be converted back to it."""
+    if getattr(t, "placements", None) is None:
+        return t.mean(-1, keepdim=True)
+    return t.sum(-1, keepdim=True) / t.shape[-1]
+
+
 def apply_norm(p, x, kind: str, eps: float):
     xf = x.float()
     if kind == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        mu = _mean_last(xf)
+        var = _mean_last((xf - mu) ** 2)
         y = (xf - mu) * torch.rsqrt(var + eps)
         y = y * _w(p["scale"], F32) + _w(p["bias"], F32)
     else:
-        var = (xf ** 2).mean(-1, keepdim=True)
+        var = _mean_last(xf ** 2)
         y = xf * torch.rsqrt(var + eps) * _w(p["scale"], F32)
     return y.to(x.dtype)
 
@@ -767,31 +780,117 @@ def mamba_schema(cfg) -> Dict[str, Spec]:
     }
 
 
-def _mamba_chunk_scan(a, bx, cmat, chunk: int):
-    """h_t = a_t * h_{t-1} + bx_t; y_t = C_t . h_t, chunk by chunk, so only
-    y [B,T,D] and one chunk's states are ever held.  a/bx: [B,T,D,S] fp32,
-    cmat: [B,T,S] fp32, T a multiple of ``chunk``.  Returns (y [B,T,D],
-    h_final [B,D,S]).
+def _pad_seq(x, n: int):
+    """``x`` [B, S, ...] with ``n`` zero rows in front along S (a token
+    shift, a causal conv's history).  A DTensor, whose S no rank splits,
+    pads its local shard: torch 2.11's DTensor pad raises on some
+    placements."""
+    front = (0, 0) * (x.dim() - 2) + (n, 0)
+    if getattr(x, "placements", None) is None:
+        return F.pad(x, front)
+    from torch.distributed.tensor import DTensor
 
-    Inside a chunk the reference runs ``lax.associative_scan`` with the
-    combine ``(a_l a_r, a_r b_l + b_r)``; here the same combine runs as a
-    plain scan, left to right in fp32 (torch has no public associative
-    scan).  The chunk's start state enters afterwards, as there:
-    ``h = prod(a) * h0 + scan(b)``.
+    if any(p.is_shard(1) for p in x.placements):
+        raise ValueError(f"the sequence dim is split: {x.placements}")
+    return DTensor.from_local(F.pad(local_of(x), front), x.device_mesh,
+                              x.placements, run_check=False)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _scan_rounds(a, b):
+    """Inclusive scan along dim 1 of h_t = a_t h_{t-1} + b_t from h = 0,
+    under the reference's ``associative_scan`` combine ``(a_l a_r,
+    a_r b_l + b_r)``: ceil(log2 n) rounds of whole-tensor ops (each element
+    combines with the one ``d`` steps back, d = 1, 2, 4, ...; the first
+    ``d`` against the identity (1, 0), exactly).  Returns (the products of
+    ``a`` so far, the states)."""
+    n, d = a.shape[1], 1
+    while d < n:
+        front = (0, 0) * (a.dim() - 2) + (d, 0)
+        b = b + a * F.pad(b[:, :-d], front)
+        a = a * F.pad(a[:, :-d], front, value=1.0)
+        d *= 2
+    return a, b
+
+
+def _mamba_group(h0, ac, bc, cc):
+    """G consecutive chunks ([B,G,Q,D,S]; C [B,G,Q,S]) from the start state
+    ``h0`` [B,D,S]: each chunk scanned at once, then its start state carried
+    from chunk to chunk, the states formed as the reference forms them,
+    ``h = prod(a) * h0 + scan(b)``; (y [B,G,Q,D], the last state)."""
+    b, g = ac.shape[:2]
+    aa, bb = (t.reshape(ac.shape) for t in _scan_rounds(
+        *(t.reshape((b * g,) + t.shape[2:]) for t in (ac, bc))))
+    starts = []
+    for i in range(g):
+        starts.append(h0)
+        h0 = aa[:, i, -1] * h0 + bb[:, i, -1]
+    h = aa * torch.stack(starts, 1)[:, :, None] + bb
+    return torch.einsum("bgqds,bgqs->bgqd", h, cc), h0
+
+
+#: Elements of the states ([B, chunks, Q, D, S]) one group of Mamba chunks
+#: may make at once.
+_MAMBA_TILE = 1 << 26
+
+
+def _mamba_chunk_scan(a, bx, cmat, chunk: int):
+    """h_t = a_t * h_{t-1} + bx_t; y_t = C_t . h_t, so that only y [B,T,D]
+    and one group's states are ever held.  a/bx: [B,T,D,S] fp32, cmat:
+    [B,T,S] fp32, T a multiple of ``chunk``.  Returns (y [B,T,D], h_final
+    [B,D,S]).
+
+    Inside a chunk the scan takes log-depth rounds (:func:`_scan_rounds`)
+    of the reference's ``lax.associative_scan`` combine.  Chunks go in
+    groups whose states hold at most :data:`_MAMBA_TILE` elements (one
+    chunk at a time at a card's widths), the start state carried chunk by
+    chunk as the reference's ``lax.scan`` carries it; under grad each group
+    is recomputed in the backward, as the reference's
+    ``jax.checkpoint(body)`` recomputes each chunk.  On DTensors the scan
+    runs on each rank's shards (:func:`_mamba_scan_sharded`).
     """
+    if getattr(a, "placements", None) is not None:
+        return _mamba_scan_sharded(a, bx, cmat, chunk)
     B, T, D, S = a.shape
-    h0 = a.new_zeros((B, D, S))
+    nc = T // chunk
+    group = max(1, min(nc, _MAMBA_TILE // (B * chunk * D * S)))
+    a, bx = (t.reshape(B, nc, chunk, D, S) for t in (a, bx))
+    cmat = cmat.reshape(B, nc, chunk, S)
+    body = (functools.partial(checkpoint, _mamba_group, use_reentrant=False)
+            if _needs_grad(a, bx, cmat) else _mamba_group)
+    h = a.new_zeros((B, D, S))
     ys = []
-    for c0 in range(0, T, chunk):
-        ac, bc = a[:, c0:c0 + chunk], bx[:, c0:c0 + chunk]
-        aa, bb = [ac[:, 0]], [bc[:, 0]]
-        for t in range(1, ac.shape[1]):
-            aa.append(aa[-1] * ac[:, t])
-            bb.append(ac[:, t] * bb[-1] + bc[:, t])
-        h = torch.stack(aa, 1) * h0[:, None] + torch.stack(bb, 1)
-        ys.append(torch.einsum("bqds,bqs->bqd", h, cmat[:, c0:c0 + chunk]))
-        h0 = h[:, -1]
-    return torch.cat(ys, dim=1), h0
+    for g0 in range(0, nc, group):
+        y, h = body(h, a[:, g0:g0 + group], bx[:, g0:g0 + group],
+                    cmat[:, g0:g0 + group])
+        ys.append(y)
+    return torch.cat(ys, dim=1).reshape(B, T, D), h
+
+
+def _mamba_scan_sharded(a, bx, cmat, chunk: int):
+    """:func:`_mamba_chunk_scan` on DTensors, on each rank's shards: the
+    recurrence is independent along B and D, so a rank scans the rows and
+    channels it holds (the sequence and state dims gathered where they
+    were split) and DTensor dispatches once a layer, not once a step.
+    ``cmat``, read whole by every rank that splits D, sums its gradient
+    over those ranks."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = a.device_mesh
+    keep = tuple(p if p.is_shard() and p.dim in (0, 2) else Replicate()
+                 for p in a.placements)
+    c = cmat.redistribute(mesh, tuple(p if p.is_shard(0) else Replicate()
+                                      for p in keep))
+    y, h = _mamba_chunk_scan(
+        local_of(a.redistribute(mesh, keep)),
+        local_of(bx.redistribute(mesh, keep)),
+        local_of(c, _partial_where(c, keep)), chunk)
+    h_at = tuple(Shard(1) if p.is_shard(2) else p for p in keep)
+    return (DTensor.from_local(y, mesh, keep, run_check=False),
+            DTensor.from_local(h, mesh, h_at, run_check=False))
 
 
 def apply_mamba(cfg, p, x, mode="train", cache=None, pos=None):
@@ -811,18 +910,23 @@ def apply_mamba(cfg, p, x, mode="train", cache=None, pos=None):
               + _w(p["conv_b"], F32))
         uc = F.silu(uc)[:, None]                        # [B,1,d_in]
     else:
-        up = torch.cat([u.new_zeros((b, c.d_conv - 1, d_in)), u], dim=1)
+        up = _pad_seq(u, c.d_conv - 1)
         uc = sum(up[:, i:i + s].float() * _w(p["conv_w"], F32)[i]
                  for i in range(c.d_conv)) + _w(p["conv_b"], F32)
         uc = F.silu(uc)
         new_conv = up[:, -(c.d_conv - 1):]
 
     xdbc = torch.einsum("bse,ef->bsf", uc.to(x.dtype), _w(p["x_proj"], x.dtype))
+    # The product leaves partial sums over the split d_in: reduced here,
+    # once, before the three parts go their ways (torch 2.11's DTensor
+    # otherwise asks a later product for a placement it cannot reach).
+    xdbc = shard(xdbc, ("batch", "seq", None))
     dt, bmat, cmat = xdbc.split([dtr, c.d_state, c.d_state], dim=-1)
     # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x above 20,
     # where log1p(exp(-x)) < 2.1e-9 is below half an fp32 ulp of x.
-    dt = F.softplus(torch.einsum("bsr,re->bse", dt.float(), _w(p["dt_w"], F32))
-                    + _w(p["dt_b"], F32))                # [B,S,d_in]
+    dt = elementwise(F.softplus, torch.einsum(
+        "bsr,re->bse", dt.float(), _w(p["dt_w"], F32))
+        + _w(p["dt_b"], F32))                           # [B,S,d_in]
     a = -torch.exp(_w(p["a_log"], F32))                  # [d_in, state]
     da = torch.exp(dt[..., None] * a)                   # [B,S,d_in,state]
     bx = (dt * uc)[..., None] * bmat.float()[:, :, None, :]
@@ -853,7 +957,8 @@ def apply_mamba(cfg, p, x, mode="train", cache=None, pos=None):
         cache["ssm"].copy_(new_ssm)
         return out, cache
     if mode == "prefill":
-        return out, {"conv": new_conv.to(x.dtype), "ssm": new_ssm}
+        # copies, not views: a view would hold the whole sequence's tensor
+        return out, {"conv": new_conv.to(x.dtype).clone(), "ssm": new_ssm}
     return out, None
 
 
@@ -896,6 +1001,44 @@ def _bf16(t):
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+#: Elements of the pairwise decay tile ([B, H, chunks, Q, Q, K]) that one
+#: group of chunks may make at once.
+_RWKV_TILE = 1 << 28
+
+
+def _rwkv_group(s0, rc, kc, vc, lw, u, tri):
+    """G consecutive chunks ([B,H,G,Q,K] each) of :func:`_rwkv_chunk` from
+    the state ``s0``: every chunk's own terms at once, then the state
+    carried from chunk to chunk; (the outputs, the next state)."""
+    cum = lw.cumsum(3)                                   # inclusive
+    cum_prev = cum - lw                                  # exclusive (t-1)
+    # intra-chunk pairwise decay exp(cum_prev_t - cum_tau), tau < t
+    expo = cum_prev[..., :, None, :] - cum[..., None, :, :]  # [B,H,G,Q,T,K]
+    expo = expo.masked_fill(~tri[:, :, None], float("-inf"))
+    pair = _bf16(torch.exp(expo))
+    scores = (_bf16(rc)[..., :, None, :] * pair
+              * _bf16(kc)[..., None, :, :]).sum(-1)       # [B,H,G,Q,T]
+    diag = torch.einsum("bhgqk,bhgqk->bhgq", rc * u[None, :, None, None, :],
+                        kc)
+    o_intra = (torch.einsum("bhgqt,bhgtv->bhgqv", scores, vc)
+               + diag[..., None] * vc)
+    # state: S' = D(exp(cum_Q)) S0 + sum_tau exp(cum_Q - cum_tau) k v
+    total = cum[..., -1:, :]
+    kv = torch.einsum("bhgtk,bhgtv->bhgkv", kc * torch.exp(total - cum), vc)
+    decay = torch.exp(total.transpose(3, 4))              # [B,H,G,K,1]
+    # Each chunk's start state: the group's start carried through the
+    # chunks before it, in log-depth rounds (S' = decay * S + kv).
+    b, h, g, k = kv.shape[:4]
+    prod, acc = (t.reshape(b, h, g, k, -1) for t in _scan_rounds(
+        decay.reshape(b * h, g, k, 1), kv.reshape(b * h, g, k, k)))
+    starts = torch.cat([s0[:, :, None], (prod * s0[:, :, None] + acc)
+                        [:, :, :-1]], dim=2)
+    # inter-chunk: r_t . D(exp(cum_prev_t)) . S_in   (exponents <= 0)
+    o_inter = torch.einsum("bhgqk,bhgkv->bhgqv", rc * torch.exp(cum_prev),
+                           starts)
+    return o_inter + o_intra, prod[:, :, -1] * s0 + acc[:, :, -1]
+
+
 def _rwkv_chunk(r, k, v, logw, u, chunk: int):
     """Chunked Finch recurrence.  r/k/v/logw: [B,H,T,K] fp32 (V == K), T a
     multiple of ``chunk``.  Every pairwise decay exponent is a difference
@@ -906,35 +1049,53 @@ def _rwkv_chunk(r, k, v, logw, u, chunk: int):
     The intra-chunk score rounds r, the decay tile and k to bf16 and sums
     their products in fp32, as the reference's einsum with
     ``preferred_element_type=f32`` does: a product of three bf16
-    significands (8 bits each) is exact in fp32's 24.
+    significands (8 bits each) is exact in fp32's 24.  Chunks go in groups
+    whose decay tiles hold at most :data:`_RWKV_TILE` elements: each
+    chunk's own terms in one op a group, the state carried across the
+    group's chunks in log-depth rounds (:func:`_scan_rounds`; the
+    reference's ``lax.scan`` carries it one chunk at a time, so the sums
+    associate differently) and from group to group in order.  Under
+    grad each group is recomputed in the backward, as the reference's
+    ``jax.checkpoint(body)`` recomputes each chunk.  On DTensors the chunks
+    run on each rank's shards: the recurrence is independent along B and
+    H.
     """
+    if getattr(r, "placements", None) is not None:
+        return _rwkv_chunk_sharded(r, k, v, logw, u, chunk)
     B, H, T, K = r.shape
+    nc = T // chunk
     tri = torch.ones((chunk, chunk), dtype=torch.bool,
                      device=r.device).tril(-1)            # tau < t
+    body = (functools.partial(checkpoint, _rwkv_group, use_reentrant=False)
+            if _needs_grad(r, k, v, logw, u) else _rwkv_group)
+    group = max(1, min(nc, _RWKV_TILE // (B * H * chunk * chunk * K)))
+    r, k, v, logw = (t.reshape(B, H, nc, chunk, K) for t in (r, k, v, logw))
     s0 = r.new_zeros((B, H, K, K))
     outs = []
-    for c0 in range(0, T, chunk):
-        rc, kc, vc, lw = (t[:, :, c0:c0 + chunk] for t in (r, k, v, logw))
-        cum = lw.cumsum(2)                               # inclusive
-        cum_prev = cum - lw                              # exclusive (t-1)
-        # inter-chunk: r_t . D(exp(cum_prev_t)) . S0   (exponents <= 0)
-        o_inter = torch.einsum("bhqk,bhkv->bhqv", rc * torch.exp(cum_prev), s0)
-        # intra-chunk pairwise decay exp(cum_prev_t - cum_tau), tau < t
-        expo = cum_prev[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,H,Q,T,K]
-        expo = expo.masked_fill(~tri[:, :, None], float("-inf"))
-        pair = _bf16(torch.exp(expo))
-        scores = (_bf16(rc)[:, :, :, None, :] * pair
-                  * _bf16(kc)[:, :, None, :, :]).sum(-1)  # [B,H,Q,T]
-        diag = torch.einsum("bhqk,bhqk->bhq", rc * u[None, :, None, :], kc)
-        o_intra = (torch.einsum("bhqt,bhtv->bhqv", scores, vc)
-                   + diag[..., None] * vc)
-        # state: S' = D(exp(cum_Q)) S0 + sum_tau exp(cum_Q - cum_tau) k v
-        total = cum[:, :, -1:]
-        k_dec = kc * torch.exp(total - cum)
-        s0 = (torch.exp(total.transpose(2, 3)) * s0
-              + torch.einsum("bhtk,bhtv->bhkv", k_dec, vc))
-        outs.append(o_inter + o_intra)
-    return torch.cat(outs, dim=2), s0
+    for g0 in range(0, nc, group):
+        o, s0 = body(s0, *(t[:, :, g0:g0 + group] for t in (r, k, v, logw)),
+                     u, tri)
+        outs.append(o)
+    return torch.cat(outs, dim=2).reshape(B, H, T, K), s0
+
+
+def _rwkv_chunk_sharded(r, k, v, logw, u, chunk: int):
+    """:func:`_rwkv_chunk` on DTensors, on each rank's rows (B) and heads
+    (H), the sequence and key dims gathered where they were split; ``u``
+    [H, K] split as the heads are, its gradient summed over the ranks that
+    split only the rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = r.device_mesh
+    keep = tuple(p if p.is_shard() and p.dim in (0, 1) else Replicate()
+                 for p in r.placements)
+    u_at = u.redistribute(mesh, tuple(Shard(0) if p.is_shard(1)
+                                      else Replicate() for p in keep))
+    out, state = _rwkv_chunk(
+        *(local_of(t.redistribute(mesh, keep)) for t in (r, k, v, logw)),
+        local_of(u_at, _partial_where(u_at, keep)), chunk)
+    return (DTensor.from_local(out, mesh, keep, run_check=False),
+            DTensor.from_local(state, mesh, keep, run_check=False))
 
 
 def apply_rwkv6(cfg, p, x, mode="train", cache=None, pos=None):
@@ -942,7 +1103,7 @@ def apply_rwkv6(cfg, p, x, mode="train", cache=None, pos=None):
     b, s, d = x.shape
     h, kd = d // c.head_dim, c.head_dim
 
-    prev = cache["shift"] if mode == "decode" else F.pad(x, (0, 0, 1, 0))[:, :s]
+    prev = cache["shift"] if mode == "decode" else _pad_seq(x, 1)[:, :s]
     delta = prev - x
     # data-dependent token-shift mixes (5 streams: r,k,v,w,g)
     lora = torch.tanh(torch.einsum("bsd,dm->bsm", x, _w(p["mix_w1"], x.dtype)))
@@ -987,7 +1148,7 @@ def apply_rwkv6(cfg, p, x, mode="train", cache=None, pos=None):
         out = out[:, :, :s]
         new_cache = None
         if mode == "prefill":
-            new_cache = {"state": final_state, "shift": x[:, -1:]}
+            new_cache = {"state": final_state, "shift": x[:, -1:].clone()}
 
     o = out.transpose(1, 2).reshape(b, s, h * kd)
     o = apply_norm({"scale": p["ln_x"], "bias": torch.zeros_like(p["ln_x"])},
@@ -1020,7 +1181,7 @@ def rwkv_ffn_schema(cfg) -> Dict[str, Spec]:
 
 def apply_rwkv_ffn(cfg, p, x, shift_prev=None):
     b, s, d = x.shape
-    prev = shift_prev if shift_prev is not None else F.pad(x, (0, 0, 1, 0))[:, :s]
+    prev = shift_prev if shift_prev is not None else _pad_seq(x, 1)[:, :s]
     mu = _w(p["mu_ff"], F32)
     delta = (prev - x).float()
     xk = (x.float() + delta * mu[0]).to(x.dtype)

@@ -8,11 +8,12 @@ leading layers in an unstacked ``prefix``.  The reference's ``lax.scan``
 over the stack becomes a Python loop over the layer axis.
 
 The reference's three lowering modes share the code path:
-  train   -- full sequence, loss-ready logits; under grad each block is
-             recomputed in the backward (``torch.utils.checkpoint``, the
-             reference's ``jax.checkpoint`` around each block; its
-             ``remat_policy="dots"``, which saves the products, is
-             recomputed in full here);
+  train   -- full sequence, loss-ready logits; under grad with ``remat``
+             each block is recomputed in the backward
+             (``torch.utils.checkpoint``, the reference's
+             ``jax.checkpoint`` around each block): in full, or under
+             ``remat_policy="dots"`` keeping the outputs of the products
+             with no batch dimension (:func:`dots_policy`);
   prefill -- full sequence, returns the decode cache;
   decode  -- one token against the cache (KV, MLA latent, Mamba conv + ssm
              state or RWKV state by layer kind), written in place (see
@@ -27,7 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..distributed.sharding import (carried, embed_rows, logsumexp_last, shard,
                                     take_last)
@@ -254,10 +256,48 @@ def _apply_block(cfg, spec, p, x, positions, mode, cache, pos,
         if mode == "decode":
             cache["shift_ffn"].copy_(h2)
         elif mode == "prefill":
-            new_cache = dict(new_cache, shift_ffn=h2[:, -1:])
+            new_cache = dict(new_cache, shift_ffn=h2[:, -1:].clone())
     else:
         y2 = L.apply_mlp(cfg, p["mlp"], h2, spec.mlp)
     return x + y2, new_cache, aux
+
+
+_MM, _ADDMM, _BMM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                     torch.ops.aten.bmm.default)
+#: The matrix products; ``dots_policy`` saves those with no batch dimension:
+#: ``mm`` / ``addmm``, and a ``bmm`` whose batch is a single matrix (what an
+#: einsum such as ``[B, S, d] x [d, f]`` becomes).  A batched product
+#: (attention's scores and P.V) is recomputed.
+_PRODUCTS = (_MM, _ADDMM, _BMM)
+
+
+def _partial_product(a, b) -> bool:
+    """True when DTensor operands ``a`` [.., M, K] and ``b`` [.., K, N] split
+    the contracted K over one mesh axis: the product is a partial sum."""
+    pa, pb = getattr(a, "placements", ()), getattr(b, "placements", ())
+    return any(x.is_shard(a.dim() - 1) and y.is_shard(b.dim() - 2)
+               for x, y in zip(pa, pb))
+
+
+def dots_policy(_ctx, op, *args, **_kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable`` as a selective
+    checkpoint policy: the outputs of the products with no batch dimension
+    are saved, everything else is recomputed.
+
+    On DTensors a row-parallel product (K split: the output projections)
+    leaves partial sums of the whole model width, which XLA saves in the
+    reduce-scattered form the next annotation gives them; torch saves
+    what the op returns, so those are recomputed instead."""
+    if op is _ADDMM:
+        args = args[1:]                       # (bias, a, b)
+    no_batch = op in (_MM, _ADDMM) or (op is _BMM and args[0].shape[0] == 1)
+    if no_batch and not _partial_product(args[0], args[1]):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(dots_policy)
 
 
 def _layer(tree, r: int):
@@ -275,6 +315,7 @@ def forward(
     mode: str = "train",
     caches: Optional[Params] = None,
     pos: Optional[int] = None,
+    remat: bool = True,
     return_hidden: bool = False,
     plain_attention: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
@@ -286,8 +327,10 @@ def forward(
     Decode writes into ``caches`` in place and returns the same tree;
     prefill returns new, stacked caches.  ``plain_attention`` takes the
     plain attention on the card too (see :mod:`repro_torch.models.layers`).
-    Train mode under grad saves only each block's input and recomputes the
-    block in the backward.
+    Train mode under grad with ``remat`` saves each block's input and
+    recomputes the block in the backward, keeping the products' outputs
+    where ``cfg.remat_policy`` is ``"dots"``; without ``remat`` it saves
+    what autograd saves.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -304,13 +347,26 @@ def forward(
         return _apply_block(cfg, spec, p, x, positions, mode, cache, pos,
                             plain_attention)
 
-    if mode == "train" and torch.is_grad_enabled():
+    if mode == "prefill":
+        plain_prefill = block
+
+        def block(spec, p, x, cache):
+            # Each layer's cache is placed by its logical axes as it is
+            # made, before the stack: the reference's out_shardings
+            # (``cache_axes``), so no rank holds a whole sequence of them.
+            x, c, a = plain_prefill(spec, p, x, cache)
+            axes = _layer_cache_schema(cfg, spec, x.shape[0], x.shape[1])
+            return x, {k: shard(v, axes[k].axes) for k, v in c.items()}, a
+
+    if mode == "train" and remat and torch.is_grad_enabled():
         plain_block = carried(block)          # its recompute may run on
                                               # autograd's device thread
+        extra = ({"context_fn": _dots_contexts}
+                 if cfg.remat_policy == "dots" else {})
 
         def block(spec, p, x, cache):
             return checkpoint(plain_block, spec, p, x, cache,
-                              use_reentrant=False)
+                              use_reentrant=False, **extra)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Dict[str, Any] = {"prefix": {}, "blocks": {}}

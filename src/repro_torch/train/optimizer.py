@@ -22,6 +22,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed.sharding import from_local_like, local_like, placed_like
 from ..tree import leaves, tree_map
 
 F32 = torch.float32
@@ -47,8 +48,13 @@ class OptimizerConfig:
 
 
 class Optimizer(NamedTuple):
+    """``update(params, grads, state, step, grad_div=1.0)`` takes each
+    gradient leaf in any dtype and placement, in float32 over ``grad_div``,
+    and updates the tree leaf by leaf: a leaf's float32 temporaries are
+    freed before the next leaf is read."""
+
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, torch.Tensor], Tuple[Any, Any]]
+    update: Callable[..., Tuple[Any, Any]]
 
 
 def _schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
@@ -56,11 +62,21 @@ def _schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def _clip_by_global_norm(grads, max_norm: float):
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
+def _f32(g: torch.Tensor, div: float) -> torch.Tensor:
+    """A gradient leaf in float32, divided by ``div`` (the trainer's
+    microbatch count) as the reference's trainer divides its whole tree."""
+    return g.to(F32) if div == 1 else g.to(F32) / div
+
+
+def _clip_scale(grads, max_norm: float, div: float = 1.0) -> torch.Tensor:
+    """The factor that clips the float32 gradients (each leaf over ``div``)
+    to the global norm ``max_norm``: the reference's
+    ``_clip_by_global_norm``, its squares added in the same order, one
+    leaf's float32 copy alive at a time.  Each update multiplies a leaf by
+    it where it reads the leaf."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(_f32(g, div)))
                            for g in leaves(grads)))
-    scale = torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
-    return tree_map(lambda g: g.to(F32) * scale, grads), gnorm
+    return torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
 
 
 def _needs_master(cfg: OptimizerConfig, params) -> bool:
@@ -95,27 +111,29 @@ def make_adamw(cfg: OptimizerConfig) -> Optimizer:
             state["master"] = tree_map(lambda p: p.to(F32), params)
         return state
 
-    def update(params, grads, state, step):
-        grads, _gnorm = _clip_by_global_norm(grads, cfg.grad_clip)
+    def update(params, grads, state, step, grad_div=1.0):
+        scale = _clip_scale(grads, cfg.grad_clip, grad_div)
         lr = _schedule(cfg, step)
         t = step.to(F32) + 1.0
         c1 = 1.0 - cfg.b1 ** t
         c2 = 1.0 - cfg.b2 ** t
         masters = state.get("master", params)
+        keep = "master" in state
 
-        def upd(master, g, m, v):
+        def upd(p, master, g, m, v):
+            g = _f32(placed_like(g, p), grad_div) * scale
             m_new = cfg.b1 * m.to(F32) + (1 - cfg.b1) * g
             v_new = cfg.b2 * v.to(F32) + (1 - cfg.b2) * g * g
             step_ = (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
             master_new = (master.to(F32)
                           - lr * (step_ + cfg.weight_decay * master.to(F32)))
-            return master_new, m_new.to(mdt), v_new.to(mdt)
+            return (master_new.to(p.dtype), master_new if keep else None,
+                    m_new.to(mdt), v_new.to(mdt))
 
-        master, m, v = _unzip(
-            tree_map(upd, masters, grads, state["m"], state["v"]), 3)
-        params_new = tree_map(lambda mast, p: mast.to(p.dtype), master, params)
+        params_new, master, m, v = _unzip(tree_map(
+            upd, params, masters, grads, state["m"], state["v"]), 4)
         new_state = {"m": m, "v": v}
-        if "master" in state:
+        if keep:
             new_state["master"] = master
         return params_new, new_state
 
@@ -143,22 +161,33 @@ def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
             state["master"] = tree_map(lambda p: p.to(F32), params)
         return state
 
-    def update(params, grads, state, step):
-        grads, _gnorm = _clip_by_global_norm(grads, cfg.grad_clip)
+    def update(params, grads, state, step, grad_div=1.0):
+        scale = _clip_scale(grads, cfg.grad_clip, grad_div)
         lr = _schedule(cfg, step)
         t = step.to(F32) + 1.0
         beta2 = 1.0 - t ** (-cfg.decay_rate)
         masters = state.get("master", params)
+        keep = "master" in state
 
-        def upd(master, g, st):
+        def upd(p, master, g, st):
             master = master.to(F32)
+            g = _f32(placed_like(g, p), grad_div) * scale
             g2 = g * g + 1e-30
             if "vr" in st:
-                vr = beta2 * st["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * st["vc"] + (1 - beta2) * g2.mean(-2)
-                denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp_min(vr.mean(-1)[..., None, None], 1e-30))
-                prec = torch.rsqrt(denom + cfg.eps)
+                vr = placed_like(beta2 * st["vr"] + (1 - beta2) * g2.mean(-1),
+                                 st["vr"])
+                vc = placed_like(beta2 * st["vc"] + (1 - beta2) * g2.mean(-2),
+                                 st["vc"])
+                # The outer product is formed on g's own shards: DTensor
+                # would broadcast it in a placement of its choosing.
+                rows, cols, mean = local_like(
+                    g, (vr, range(g.dim() - 1)),
+                    (vc, [*range(g.dim() - 2), g.dim() - 1]),
+                    (vr.mean(-1), range(g.dim() - 2)))
+                prec = from_local_like(torch.rsqrt(
+                    rows[..., None] * cols[..., None, :]
+                    / torch.clamp_min(mean[..., None, None], 1e-30)
+                    + cfg.eps), g)
                 new_st = {"vr": vr, "vc": vc}
             else:
                 v = beta2 * st["v"] + (1 - beta2) * g2
@@ -169,16 +198,16 @@ def make_adafactor(cfg: OptimizerConfig) -> Optimizer:
             rms = torch.sqrt(torch.mean(torch.square(upd_)) + 1e-30)
             upd_ = upd_ / torch.clamp_min(rms, 1.0)
             master_new = master - lr * (upd_ + cfg.weight_decay * master)
-            return master_new, new_st
+            return (master_new.to(p.dtype), master_new if keep else None,
+                    new_st)
 
         is_stat = lambda x: isinstance(x, dict) and ("v" in x or "vr" in x)  # noqa: E731
         # The stats tree has the params' structure down to its stat dicts.
-        out = tree_map(lambda st, master, g: upd(master, g, st),
-                       state["stats"], masters, grads, is_leaf=is_stat)
-        master, stats = _unzip(out, 2)
-        params_new = tree_map(lambda m, p: m.to(p.dtype), master, params)
+        out = tree_map(lambda st, p, master, g: upd(p, master, g, st),
+                       state["stats"], params, masters, grads, is_leaf=is_stat)
+        params_new, master, stats = _unzip(out, 3)
         new_state = {"stats": stats}
-        if "master" in state:
+        if keep:
             new_state["master"] = master
         return params_new, new_state
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..distributed.compression import compress_grads_int8, decompress_grads_int8
-from ..distributed.sharding import split_microbatches
+from ..distributed.sharding import placed_like, split_microbatches
 from ..kernels.ops import resolve_device
 from ..models import loss_fn, params_from_reference
 from ..tree import leaves, leaves_with_path, tree_map, unflatten
@@ -58,7 +58,14 @@ def make_train_step(
         # Plain attention: the reference's train path (module docstring).
         loss, metrics = loss_fn(cfg, unflatten(params, leaf), batch,
                                 plain_attention=True)
-        grads = torch.autograd.grad(loss, leaf)
+        # Each gradient lands in its parameter's placement (a partial sum
+        # reduce-scattered where the parameter is split).  A leaf the loss
+        # never reads (``embed/w`` under a modality frontend) gets a zero
+        # gradient, as ``jax.value_and_grad`` gives it, in its dtype and
+        # placement.
+        grads = torch.autograd.grad(loss, leaf, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else placed_like(g, p)
+                 for p, g in zip(leaf, grads)]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 unflatten(params, grads))
 
@@ -75,21 +82,29 @@ def make_train_step(
                 loss, _metrics, g = grads_of(params,
                                              {k: v[i] for k, v in mb.items()})
                 g_sum = tree_map(lambda a, b_: a + b_.to(adt), g_sum, g)
+                del g
                 loss_sum = loss_sum + loss
-            grads = tree_map(lambda g: g.float() / microbatches, g_sum)
+            # The reference's ``g.astype(f32) / microbatches`` over the tree
+            # is done by the optimizer leaf by leaf (``grad_div``): the sums
+            # stay in ``accum_dtype`` until it reads them.
+            grads, grad_div = g_sum, microbatches
             loss = loss_sum / microbatches
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
         else:
             loss, metrics, grads = grads_of(params, batch)
+            grad_div = 1
 
         if compress_pod_grads:
             # int8 quantize-dequantize models the cross-pod compressed
             # all-reduce (distributed/compression.py).
-            grads = decompress_grads_int8(*compress_grads_int8(grads))
+            grads = decompress_grads_int8(*compress_grads_int8(
+                tree_map(lambda g: g.float() / grad_div, grads)))
+            grad_div = 1
 
         with torch.no_grad():
             new_params, new_opt = optimizer.update(
-                params, grads, state.opt_state, state.step)
+                params, grads, state.opt_state, state.step,
+                grad_div=grad_div)
         new_state = TrainState(new_params, new_opt, state.step + 1)
         metrics = dict(metrics, loss=loss, step=state.step)
         return new_state, metrics

@@ -14,7 +14,9 @@ one.  The file imports only the port (no JAX):
   (1e-5), through the kernel in both (one launch a layer a microbatch).
 - One dry-run cell (the reduced train step on a fake (4, 2) mesh) on fake
   CUDA tensors: traced, FLOPs and collective bytes above zero, and the
-  same counts as the same cell on the CPU.
+  same counts as the same cell on the CPU; and so a cell that ROADMAP
+  Queue 3 (o) repaired, reduced jamba-v0.1-52b's prefill (its Mamba scans
+  on each rank's shards).
 """
 
 import dataclasses
@@ -103,6 +105,30 @@ def test_dryrun_cell_on_fake_cuda_tensors(card):
         mesh = init_device_mesh(dev, (4, 2), mesh_dim_names=("data", "model"))
         got[dev] = dryrun.trace_cell(cfg, shape, mesh, rules,
                                      torch.device(dev), mb_override=2)
+    memory, hlo, _ = got["cuda"]
+    assert hlo["flops"] > 0 and hlo["collective_bytes"] > 0
+    for key in ("flops", "collective_bytes"):
+        assert hlo[key] == got["cpu"][1][key]
+    assert memory == got["cpu"][0]
+
+
+def test_repaired_scan_cell_on_fake_cuda_tensors(card):
+    """Reduced jamba-v0.1-52b's prefill, its Mamba scans on each rank's
+    shards, on fake CUDA tensors: the CPU's counts and bytes."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_world
+
+    cfg = get_config("jamba-v0.1-52b").reduced()
+    shape = ShapeConfig("p16", 16, 8, "prefill")
+    rules = dryrun.rules_for(cfg, shape, False)
+    init_fake_world(8)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        mesh = init_device_mesh(dev, (4, 2), mesh_dim_names=("data", "model"))
+        got[dev] = dryrun.trace_cell(cfg, shape, mesh, rules,
+                                     torch.device(dev))
     memory, hlo, _ = got["cuda"]
     assert hlo["flops"] > 0 and hlo["collective_bytes"] > 0
     for key in ("flops", "collective_bytes"):

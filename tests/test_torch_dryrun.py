@@ -227,3 +227,116 @@ def test_cuda_device_without_a_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dryrun.run_cell("llama3.2-1b", "train_4k", False, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP Queue 3 (l), (m), (o): prefill outputs placed, the pure-bf16
+# train step's memory, the scan mixers' cells
+# ---------------------------------------------------------------------------
+
+def _fake_mesh():
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import init_fake_world
+
+    init_fake_world(8)
+    return init_device_mesh("cpu", tuple(MESH.values()),
+                            mesh_dim_names=tuple(MESH))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "hubert-xlarge"])
+def test_prefill_output_bytes_equal_reference_rules(arch):
+    """(l) The prefill's outputs leave as the reference's ``out_shardings``
+    place them: a decoder's last-row logits over ("batch", "vocab") and its
+    caches over ``cache_axes``, an encoder's logits over ("batch", "seq",
+    "vocab")."""
+    from repro.configs import get_config as ref_get_config
+    from repro.configs.base import ShapeConfig as RefShape
+    from repro.launch.dryrun import rules_for as ref_rules_for
+    from repro.models.transformer import cache_schema
+
+    name, seq, batch = SHAPES["prefill"]
+    ref_cfg = ref_get_config(arch).reduced()
+    rules = ref_rules_for(ref_cfg, RefShape(name, seq, batch, "prefill"),
+                          False)
+    cfg = get_config(arch).reduced()
+    memory, _, _ = dryrun.trace_cell(
+        cfg, _shape("prefill"), _fake_mesh(),
+        dryrun.rules_for(cfg, _shape("prefill"), False), torch.device("cpu"))
+    f32 = np.dtype(np.float32)
+    if cfg.encoder_only:
+        want = _implied_bytes(rules, {"l": ((batch, seq, cfg.vocab),
+                                            ("batch", "seq", "vocab"))},
+                              lambda _p: f32)
+    else:
+        want = _implied_bytes(rules, {"l": ((batch, cfg.vocab),
+                                            ("batch", "vocab"))},
+                              lambda _p: f32)
+        want += _implied_bytes(rules, _leaves(cache_schema(ref_cfg, batch, seq)),
+                               lambda _p: f32)
+    assert memory["output_size_in_bytes"] == want
+
+
+def _pure_bf16_cell(n_layers, monkeypatch):
+    """(memory, hlo, cfg) of a pure-bf16 Adafactor train step with bf16
+    gradient accumulation (nemotron-4-340b's recipe) at ``n_layers``, wide
+    enough that Adafactor factors the stacked products."""
+    make = dryrun.make_train_step
+    monkeypatch.setattr(dryrun, "make_train_step", lambda *a, **k: make(
+        *a, **dict(k, accum_dtype="bfloat16")))
+    cfg = dataclasses.replace(
+        get_config("nemotron-4-340b").reduced(), n_layers=n_layers,
+        d_model=256, d_ff=512, n_heads=16, n_kv_heads=8, head_dim=16,
+        vocab=512, param_dtype="bfloat16", act_dtype="bfloat16")
+    assert cfg.pure_bf16 and cfg.optimizer == "adafactor"
+    memory, hlo, _ = dryrun.trace_cell(
+        cfg, _shape("train"), _fake_mesh(),
+        dryrun.rules_for(cfg, _shape("train"), False), torch.device("cpu"),
+        mb_override=2)
+    return memory, hlo, cfg
+
+
+@pytest.mark.parametrize("n_layers", [4, 8])
+def test_pure_bf16_train_step_holds_no_whole_f32_stacks(n_layers, monkeypatch):
+    """(m) No float32 tensor spanning the layer axis is larger than a
+    stacked leaf's own shard (the optimizer works on each leaf where it
+    lies), and the step's own tensors peak below 4 x the layers x one
+    layer's gradient in float32 (the parent's step held ~11.7x: Adafactor's
+    whole [L, rows, cols] second moment on every rank)."""
+    from repro.configs import get_config as ref_get_config
+    from repro.configs.base import ShapeConfig as RefShape
+    from repro.launch.dryrun import rules_for as ref_rules_for
+    from repro.models.transformer import model_schema
+
+    memory, hlo, cfg = _pure_bf16_cell(n_layers, monkeypatch)
+    ref_cfg = dataclasses.replace(
+        ref_get_config("nemotron-4-340b").reduced(), n_layers=n_layers,
+        d_model=256, d_ff=512, n_heads=16, n_kv_heads=8, head_dim=16,
+        vocab=512)
+    name, seq, batch = SHAPES["train"]
+    rules = ref_rules_for(ref_cfg, RefShape(name, seq, batch, "train"), False)
+    stacked = {p: v for p, v in _leaves(model_schema(ref_cfg)).items()
+               if p[0] == "blocks"}
+    f32 = np.dtype(np.float32)
+    shard_elems = max(_implied_bytes(rules, {p: v}, lambda _p: f32) // 4
+                      for p, v in stacked.items())
+    for nbytes, op, shape in hlo["largest_outputs"]:
+        if shape and shape[0] == n_layers and nbytes == 4 * math.prod(shape):
+            assert math.prod(shape) <= shard_elems, (op, shape)
+    layer_grad_f32 = _implied_bytes(rules, stacked, lambda _p: f32) / n_layers
+    assert memory["temp_size_in_bytes"] <= 4 * n_layers * layer_grad_f32
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b"])
+def test_scan_mixer_cells_trace_on_local_shards(arch, kind):
+    """(o) The Mamba and RWKV6 cells trace on the fake mesh, their scans
+    run on each rank's shards: a few hundred ops a chunk at most, where a
+    step-by-step loop on DTensors dispatched thousands."""
+    cfg = get_config(arch).reduced()
+    memory, hlo, _ = dryrun.trace_cell(
+        cfg, _shape(kind), _fake_mesh(), dryrun.rules_for(
+            cfg, _shape(kind), False), torch.device("cpu"),
+        mb_override=2 if kind == "train" else None)
+    assert hlo["flops"] > 0 and hlo["collective_bytes"] > 0
+    assert memory["total_hbm_bytes"] >= memory["argument_size_in_bytes"] > 0

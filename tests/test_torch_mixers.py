@@ -195,8 +195,9 @@ def test_rwkv6_oracle_matches_reference_and_naive_loop(with_state):
 
 
 def test_chunk_scans_match_reference():
-    """``_mamba_chunk_scan`` (the reference's associative scan, here a
-    plain scan) and ``_rwkv_chunk`` over three chunks, fp32."""
+    """``_mamba_chunk_scan`` (the reference's associative scan, here in
+    log-depth rounds of the same combine) and ``_rwkv_chunk`` over three
+    chunks, fp32."""
     B, T_, D, S_ = 2, 24, 6, 4
     a = np.random.default_rng(1).uniform(0.3, 1.0, (B, T_, D, S_)).astype(np.float32)
     bx, c = _normal((B, T_, D, S_), 2), _normal((B, T_, S_), 3)

@@ -22,6 +22,11 @@ card and skips itself without one.  The file imports only the port (no JAX):
   ``wgmma`` launch a layer and no ``simt``; the bf16 loss through the kernel
   no further from the f32 plain loss than 1.5x the plain bf16 loss is (or
   1e-3 of it), the rule of ``chip_smoke.py``'s eval gates.
+- hubert-xlarge's train step at full width (bf16, AdamW with an f32
+  master) cut to 2 layers, B 4 x 1,024 frames, 3 steps: finite losses, and
+  ``embed/w`` (which the frontend never reads) and its optimizer state
+  after each step bit-equal to the optimizer's update of them from a zero
+  gradient (ROADMAP Queue 3 (k)).
 """
 
 import dataclasses
@@ -39,7 +44,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch.train import frontend_frames
 from repro_torch.models import forward, init_params, layers, loss_fn
-from repro_torch.train import make_eval_step
+from repro_torch.train import (init_train_state, make_eval_step,
+                               make_optimizer, make_train_step)
 from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 pytestmark = pytest.mark.cuda
@@ -149,3 +155,26 @@ def test_hubert_eval_step_at_full_width_runs_on_wgmma(card):
                               batch, plain_attention=True)[0])
     limit = max(1.5 * abs(l_plain - l_f32), 1e-3 * l_f32)
     assert np.isfinite(l_kernel) and abs(l_kernel - l_f32) <= limit
+
+
+def test_hubert_train_step_at_full_width_decays_the_unread_embedding(card):
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), n_layers=2)
+    params = init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    _, opt = make_optimizer(cfg.optimizer, lr=3e-4, warmup_steps=1)
+    state = init_train_state(cfg, params, opt)
+    step = make_train_step(cfg, opt)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (4, 1025))
+    batch = {"inputs": torch.from_numpy(frontend_frames(cfg, toks[:, :-1])).to(card),
+             "labels": torch.from_numpy(toks[:, 1:]).to(card)}
+    for _ in range(3):
+        zero = {"embed": {"w": torch.zeros_like(state.params["embed"]["w"])}}
+        sub = {k: {"embed": v["embed"]} for k, v in state.opt_state.items()}
+        with torch.no_grad():
+            want, want_state = opt.update({"embed": state.params["embed"]},
+                                          zero, sub, state.step)
+        state, metrics = step(state, batch)
+        assert np.isfinite(float(metrics["loss"]))
+        assert torch.equal(state.params["embed"]["w"], want["embed"]["w"])
+        for k, v in want_state.items():
+            assert torch.equal(state.opt_state[k]["embed"]["w"],
+                               v["embed"]["w"])
