@@ -26,6 +26,7 @@ from ..kernels.ops import resolve_device
 from ..models import init_params
 from ..serve import prefill, serve_step
 from ..serve.kv_tier import KVTierManager
+from ..tracing import span
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,8 +57,13 @@ def make_prompts(cfg, args) -> list:
 
 
 def _clone(tree):
+    with span("serve.clone"):
+        return _clone_tree(tree)
+
+
+def _clone_tree(tree):
     if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
+        return {k: _clone_tree(v) for k, v in tree.items()}
     return tree.clone()
 
 
@@ -73,45 +79,57 @@ def serve(cfg, params, prompts, gen: int, tier: KVTierManager, dev) -> dict:
     out = {"tokens": [], "hit": [], "prefill_s": [], "decode_s": [],
            "decode_steps": [], "occupancy": []}
     for prompt in prompts:
-        pkey = "prefix:" + hashlib.blake2b(prompt.numpy().tobytes(),
-                                           digest_size=4).hexdigest()
-        prompt = prompt.to(dev)
-        max_len = prompt.shape[1] + gen
-        t0 = time.perf_counter()
+        with span("serve.request"):
+            _serve_one(cfg, params, prompt, gen, tier, dev, out)
+    return out
+
+
+def _serve_one(cfg, params, prompt, gen: int, tier: KVTierManager, dev,
+               out: dict) -> None:
+    pkey = "prefix:" + hashlib.blake2b(prompt.numpy().tobytes(),
+                                       digest_size=4).hexdigest()
+    prompt = prompt.to(dev)
+    max_len = prompt.shape[1] + gen
+    t0 = time.perf_counter()
+    with span("serve.tier"):
         blk = tier.lookup(pkey)
-        if blk is None:
+    if blk is None:
+        with span("serve.prefill"):
             logits, caches, pos = prefill(cfg, params, prompt, max_len=max_len)
-            nbytes = sum(x.numel() * x.element_size()
-                         for group in caches.values()
-                         for layer in group.values() for x in layer.values())
+        nbytes = sum(x.numel() * x.element_size()
+                     for group in caches.values()
+                     for layer in group.values() for x in layer.values())
+        with span("serve.tier"):
             tier.insert(pkey, nbytes, payload=(caches, pos))
-            caches = _clone(caches)
-            steps = 0
-        else:
-            payload, pos = blk.payload          # KV reuse: skip prefill
-            caches = _clone(payload)
+        caches = _clone(caches)
+        steps = 0
+    else:
+        payload, pos = blk.payload          # KV reuse: skip prefill
+        caches = _clone(payload)
+        with span("serve.decode_step"):
             logits, caches = serve_step(cfg, params, caches, prompt[:, -1:],
                                         pos - 1)
-            steps = 1
-        tok = torch.argmax(logits, -1)[:, None]
-        _sync(dev)
-        t1 = time.perf_counter()
-        toks = [tok]
-        for _ in range(gen - 1):
+        steps = 1
+    tok = torch.argmax(logits, -1)[:, None]
+    _sync(dev)
+    t1 = time.perf_counter()
+    toks = [tok]
+    for _ in range(gen - 1):
+        with span("serve.decode_step"):
             logits, caches = serve_step(cfg, params, caches, tok, pos)
-            pos = pos + 1
-            tok = torch.argmax(logits, -1)[:, None]
-            toks.append(tok)
-        _sync(dev)
-        t2 = time.perf_counter()
+        pos = pos + 1
+        tok = torch.argmax(logits, -1)[:, None]
+        toks.append(tok)
+    _sync(dev)
+    t2 = time.perf_counter()
+    with span("serve.tier"):
         tier.scan()
-        out["tokens"].append(torch.cat(toks, dim=1).cpu())
-        out["hit"].append(blk is not None)
-        out["prefill_s"].append(t1 - t0 if blk is None else None)
-        out["decode_s"].append(t2 - t1)
-        out["decode_steps"].append(steps + gen - 1)
-        out["occupancy"].append(tier.occupancy())
-    return out
+    out["tokens"].append(torch.cat(toks, dim=1).cpu())
+    out["hit"].append(blk is not None)
+    out["prefill_s"].append(t1 - t0 if blk is None else None)
+    out["decode_s"].append(t2 - t1)
+    out["decode_steps"].append(steps + gen - 1)
+    out["occupancy"].append(tier.occupancy())
 
 
 def run(args) -> dict:
@@ -131,15 +149,23 @@ def run(args) -> dict:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    t0 = time.perf_counter()
     res = run(args)
-    dt = time.perf_counter() - t0
     print("tier break-even residencies (s):", res["tier"].t_even_seconds())
     for i, (hit, occ) in enumerate(zip(res["hit"], res["occupancy"])):
         print(f"req {i}: hit={'yes' if hit else 'no '} "
               f"occupancy={ {k: v // 1024 for k, v in occ.items()} }KB")
-    total_tok = args.requests * args.batch * args.gen
-    print(f"{total_tok} tokens in {dt:.1f}s; tier stats: {res['tier'].stats}")
+    # decode_s times the gen - 1 steps after a request's first token.
+    steps = len(res["decode_s"]) * (args.gen - 1)
+    decode_s = sum(res["decode_s"])
+    if steps:
+        print(f"decode: {steps * args.batch} tokens in {decode_s:.3f}s, "
+              f"{1e3 * decode_s / steps:.2f} ms a step, "
+              f"{steps * args.batch / decode_s:.1f} tokens/s")
+    prefill_s = [s for s in res["prefill_s"] if s is not None]
+    if prefill_s:
+        print(f"prefill: {len(prefill_s)} prompts of {args.prompt_len} "
+              f"tokens in {sum(prefill_s):.3f}s")
+    print(f"tier stats: {res['tier'].stats}")
 
 
 if __name__ == "__main__":

@@ -53,6 +53,7 @@ from ..distributed.sharding import (_partial_where, batch_local, batch_mean,
                                     write_seq)
 from ..kernels.flash_attention import (HEAD_DIMS, flash_attention_bshd,
                                        softmax_scale)
+from ..tracing import span
 
 F32 = torch.float32
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -445,71 +446,83 @@ def apply_attn(
       decode  -- x is [B,1,d], read+update cache at ``pos`` (an int), in
                  place.
     """
+    with span("layer.attn"):
+        return _apply_attn(cfg, p, x, positions, spec, mode, cache, pos,
+                           plain_attention)
+
+
+def _apply_attn(cfg, p, x, positions, spec, mode, cache, pos,
+                plain_attention):
     b, s, d = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, _w(p["wq"], x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, _w(p["wk"], x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, _w(p["wv"], x.dtype))
-    q = shard(q, ("batch", "seq", "heads", None))
-    k = shard(k, ("batch", "seq", "kv_heads", None))
-    v = shard(v, ("batch", "seq", "kv_heads", None))
     window = spec.window
     kernel = x.is_cuda and not plain_attention
+    with span("attn.qkv"):
+        q = torch.einsum("bsd,dhk->bshk", x, _w(p["wq"], x.dtype))
+        k = torch.einsum("bsd,dhk->bshk", x, _w(p["wk"], x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", x, _w(p["wv"], x.dtype))
+        q = shard(q, ("batch", "seq", "heads", None))
+        k = shard(k, ("batch", "seq", "kv_heads", None))
+        v = shard(v, ("batch", "seq", "kv_heads", None))
+        if mode == "decode":
+            positions = (pos + torch.arange(s, device=x.device))[None, :].expand(b, s)
+        elif positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q = rotate(cfg, q, positions)
+        k = rotate(cfg, k, positions)
 
     if mode == "decode":
-        newpos = (pos + torch.arange(s, device=x.device))[None, :].expand(b, s)
-        q = rotate(cfg, q, newpos)
-        k = rotate(cfg, k, newpos)
-        k_cache, v_cache = cache["k"], cache["v"]
-        cache_len = k_cache.shape[1]
-        slot = (pos % cache_len) if window is not None else pos
-        write_seq(k_cache, slot, k.to(k_cache.dtype))
-        write_seq(v_cache, slot, v.to(v_cache.dtype))
-        k_cache = shard(k_cache, ("batch", "kv_seq", "kv_heads", None))
-        v_cache = shard(v_cache, ("batch", "kv_seq", "kv_heads", None))
+        with span("attn.cache_write"):
+            k_cache, v_cache = cache["k"], cache["v"]
+            cache_len = k_cache.shape[1]
+            slot = (pos % cache_len) if window is not None else pos
+            write_seq(k_cache, slot, k.to(k_cache.dtype))
+            write_seq(v_cache, slot, v.to(v_cache.dtype))
+            k_cache = shard(k_cache, ("batch", "kv_seq", "kv_heads", None))
+            v_cache = shard(v_cache, ("batch", "kv_seq", "kv_heads", None))
         # Ring buffer: every live slot is within the window by
         # construction; mask only the not-yet-filled slots.  Every row of
         # a longer step is masked at pos, as in the reference.
         valid_upto = min(pos, cache_len - 1) if window is not None else pos
-        if kernel:
-            o = _flash(q, k_cache, v_cache, causal=False, q_offset=pos,
-                       kv_len=valid_upto + 1, softcap=cfg.logit_softcap)
-        else:
-            o = _sdpa(q, k_cache, v_cache, causal=False, window=None,
-                      kv_valid=valid_upto, softcap=cfg.logit_softcap)
+        with span("attn.kernel"):
+            if kernel:
+                o = _flash(q, k_cache, v_cache, causal=False, q_offset=pos,
+                           kv_len=valid_upto + 1, softcap=cfg.logit_softcap)
+            else:
+                o = _sdpa(q, k_cache, v_cache, causal=False, window=None,
+                          kv_valid=valid_upto, softcap=cfg.logit_softcap)
         new_cache = {"k": k_cache, "v": v_cache}
     else:
-        if positions is None:
-            positions = torch.arange(s, device=x.device)[None, :]
-        q = rotate(cfg, q, positions)
-        k = rotate(cfg, k, positions)
         # K/V (batch x kv_heads)-sharded and seq-replicated at the
         # attention boundary, as the reference pins them.
         k = shard(k, ("batch", None, "kv_heads", None))
         v = shard(v, ("batch", None, "kv_heads", None))
         q = shard(q, ("batch", None, "heads", None))
-        if kernel:
-            o = _flash(q, k, v, causal=cfg.causal, q_offset=0, window=window,
-                       softcap=cfg.logit_softcap)
-        else:
-            o = _sdpa(q, k, v, causal=cfg.causal, window=window,
-                      softcap=cfg.logit_softcap)
+        with span("attn.kernel"):
+            if kernel:
+                o = _flash(q, k, v, causal=cfg.causal, q_offset=0,
+                           window=window, softcap=cfg.logit_softcap)
+            else:
+                o = _sdpa(q, k, v, causal=cfg.causal, window=window,
+                          softcap=cfg.logit_softcap)
         new_cache = None
         if mode == "prefill":
-            if window is not None:
-                w = min(window, s)
-                # keep the last `w` positions, laid out in ring order
-                idx = torch.arange(s - w, s, device=x.device) % window
-                kc = k.new_zeros((b, window) + tuple(k.shape[2:]))
-                vc = torch.zeros_like(kc)
-                kc[:, idx] = k[:, s - w:]
-                vc[:, idx] = v[:, s - w:]
-                new_cache = {"k": kc, "v": vc}
-            else:
-                new_cache = {"k": k, "v": v}
+            with span("attn.cache_write"):
+                if window is not None:
+                    w = min(window, s)
+                    # keep the last `w` positions, laid out in ring order
+                    idx = torch.arange(s - w, s, device=x.device) % window
+                    kc = k.new_zeros((b, window) + tuple(k.shape[2:]))
+                    vc = torch.zeros_like(kc)
+                    kc[:, idx] = k[:, s - w:]
+                    vc[:, idx] = v[:, s - w:]
+                    new_cache = {"k": kc, "v": vc}
+                else:
+                    new_cache = {"k": k, "v": v}
 
-    o = shard(o, ("batch", "seq", "heads", None))
-    y = torch.einsum("bshk,hkd->bsd", o, _w(p["wo"], x.dtype))
-    return shard(y, ("batch", "seq", "d_model")), new_cache
+    with span("attn.out"):
+        o = shard(o, ("batch", "seq", "heads", None))
+        y = torch.einsum("bshk,hkd->bsd", o, _w(p["wo"], x.dtype))
+        return shard(y, ("batch", "seq", "d_model")), new_cache
 
 
 def attn_cache_schema(cfg, spec, batch: int, max_len: int) -> Dict[str, Spec]:
@@ -719,43 +732,54 @@ def apply_moe(cfg, p, x):
     own sequences (routing groups are sequences, so nothing crosses ranks),
     and the expert products on the DTensor buffer as the rules shard it.
     """
+    with span("layer.moe"):
+        return _apply_moe(cfg, p, x)
+
+
+def _apply_moe(cfg, p, x):
     m = cfg.moe
     b, s, d = x.shape
     xl, wrap = batch_local(x)
     bl = xl.shape[0]
-    route = moe_route(cfg, {"router": whole(_w(p["router"], F32), x)}, xl)
-    bidx = torch.arange(bl, device=x.device)[:, None]
-    src = xl.repeat_interleave(m.top_k, dim=1)                    # [b, tk, d]
-    src = src.masked_fill(~route.keep[..., None], 0)
-    buf = xl.new_zeros((bl, m.n_routed, route.cap, d))
-    buf.index_put_((bidx, route.expert, route.slot), src, accumulate=True)
-    buf = shard(wrap(buf), ("batch", "experts", None, None))
+    with span("moe.route"):
+        route = moe_route(cfg, {"router": whole(_w(p["router"], F32), x)}, xl)
+    with span("moe.dispatch"):
+        bidx = torch.arange(bl, device=x.device)[:, None]
+        src = xl.repeat_interleave(m.top_k, dim=1)                # [b, tk, d]
+        src = src.masked_fill(~route.keep[..., None], 0)
+        buf = xl.new_zeros((bl, m.n_routed, route.cap, d))
+        buf.index_put_((bidx, route.expert, route.slot), src, accumulate=True)
+        buf = shard(wrap(buf), ("batch", "experts", None, None))
 
-    hg = torch.einsum("becd,edf->becf", buf, _w(p["we_gate"], x.dtype))
-    hu = torch.einsum("becd,edf->becf", buf, _w(p["we_up"], x.dtype))
-    hg = shard(hg, ("batch", "experts", None, "expert_ff"))
-    h = F.silu(hg.float()).to(x.dtype) * hu
-    eo = torch.einsum("becf,efd->becd", h, _w(p["we_down"], x.dtype))
-    eo = shard(eo, ("batch", "experts", None, None))
+    with span("moe.experts"):
+        hg = torch.einsum("becd,edf->becf", buf, _w(p["we_gate"], x.dtype))
+        hu = torch.einsum("becd,edf->becf", buf, _w(p["we_up"], x.dtype))
+        hg = shard(hg, ("batch", "experts", None, "expert_ff"))
+        h = F.silu(hg.float()).to(x.dtype) * hu
+        eo = torch.einsum("becf,efd->becd", h, _w(p["we_down"], x.dtype))
+        eo = shard(eo, ("batch", "experts", None, None))
 
-    eo, _ = batch_local(eo)
-    gathered = eo[bidx, route.expert, route.slot]                 # [b, tk, d]
-    gathered = gathered.masked_fill(~route.keep[..., None], 0)
-    combined = wrap((gathered.reshape(bl, s, m.top_k, d).float()
-                     * route.gates[..., None]).sum(2).to(x.dtype))
+    with span("moe.combine"):
+        eo, _ = batch_local(eo)
+        gathered = eo[bidx, route.expert, route.slot]             # [b, tk, d]
+        gathered = gathered.masked_fill(~route.keep[..., None], 0)
+        combined = wrap((gathered.reshape(bl, s, m.top_k, d).float()
+                         * route.gates[..., None]).sum(2).to(x.dtype))
 
     if m.n_shared:
-        g = torch.einsum("bsd,df->bsf", x, _w(p["ws_gate"], x.dtype))
-        u = torch.einsum("bsd,df->bsf", x, _w(p["ws_up"], x.dtype))
-        sh_h = F.silu(g.float()).to(x.dtype) * u
-        combined = combined + torch.einsum("bsf,fd->bsd", sh_h,
-                                           _w(p["ws_down"], x.dtype))
+        with span("moe.shared"):
+            g = torch.einsum("bsd,df->bsf", x, _w(p["ws_gate"], x.dtype))
+            u = torch.einsum("bsd,df->bsf", x, _w(p["ws_up"], x.dtype))
+            sh_h = F.silu(g.float()).to(x.dtype) * u
+            combined = combined + torch.einsum("bsf,fd->bsd", sh_h,
+                                               _w(p["ws_down"], x.dtype))
 
     # load-balance aux loss (Switch): mean_prob * mean_assignment per expert
-    density = batch_mean(route.onehot.reshape(bl, s, m.top_k, m.n_routed)
-                         .sum(2).mean((0, 1)), x)
-    mean_prob = batch_mean(route.probs.mean((0, 1)), x)
-    aux = (density * mean_prob).sum() * m.n_routed * m.router_aux_weight
+    with span("moe.aux"):
+        density = batch_mean(route.onehot.reshape(bl, s, m.top_k, m.n_routed)
+                             .sum(2).mean((0, 1)), x)
+        mean_prob = batch_mean(route.probs.mean((0, 1)), x)
+        aux = (density * mean_prob).sum() * m.n_routed * m.router_aux_weight
     return shard(combined, ("batch", "seq", "d_model")), aux
 
 

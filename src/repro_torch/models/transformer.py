@@ -33,6 +33,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..distributed.sharding import (carried, embed_rows, logsumexp_last, shard,
                                     take_last)
+from ..tracing import span
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -335,13 +336,14 @@ def forward(
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     adt = L.dtype_of(cfg.act_dtype)
-    if inputs.dim() == 3:         # precomputed frontend embeddings [B, S, F]
-        x = torch.einsum("bsf,fd->bsd", inputs.to(adt),
-                         L._w(params["frontend"]["proj"], adt))
-    else:                         # token ids [B, S]
-        x = embed_rows(L._w(params["embed"]["w"], adt), inputs)
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt)
-    x = shard(x, ("batch", "seq", "d_model"))
+    with span("model.embed"):
+        if inputs.dim() == 3:     # precomputed frontend embeddings [B, S, F]
+            x = torch.einsum("bsf,fd->bsd", inputs.to(adt),
+                             L._w(params["frontend"]["proj"], adt))
+        else:                     # token ids [B, S]
+            x = embed_rows(L._w(params["embed"]["w"], adt), inputs)
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt)
+        x = shard(x, ("batch", "seq", "d_model"))
 
     def block(spec, p, x, cache):
         return _apply_block(cfg, spec, p, x, positions, mode, cache, pos,
@@ -396,10 +398,11 @@ def forward(
             new_caches["blocks"][f"pos{j}"] = {
                 k: torch.stack([c[k] for c in per_rep]) for k in per_rep[0]}
 
-    x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
-    if return_hidden:
-        return x, None, aux
-    logits = shard(_lm_head(cfg, params, x), ("batch", "seq", "vocab"))
+    with span("model.head"):
+        x = L.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+        if return_hidden:
+            return x, None, aux
+        logits = shard(_lm_head(cfg, params, x), ("batch", "seq", "vocab"))
     if mode == "decode":
         return logits, caches, aux
     return logits, (new_caches if mode == "prefill" else None), aux

@@ -138,7 +138,10 @@ def test_launch_serve_runs_on_the_cpu(capsys):
                        "--batch", "2", "--prompt-len", "12", "--gen", "5"])
     out = capsys.readouterr().out
     assert "req 3: hit=yes" in out and "req 2: hit=no" in out
-    assert "40 tokens in" in out and "'misses': 3" in out
+    # decode_s times gen - 1 = 4 steps of batch 2 for each of 4 requests;
+    # the 3 misses prefill.
+    assert "decode: 32 tokens in" in out and "ms a step" in out
+    assert "prefill: 3 prompts of 12 tokens in" in out and "'misses': 3" in out
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -154,7 +157,7 @@ def test_launch_serve_accepts_every_config(arch, capsys):
         return
     launch_serve.main(argv)
     out = capsys.readouterr().out
-    assert "req 3: hit=yes" in out and "24 tokens in" in out
+    assert "req 3: hit=yes" in out and "decode: 16 tokens in" in out
 
 
 def test_launch_serve_flags():
