@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs thirteen
+(one nvcc per source for sm_90a, all started together), then runs fourteen
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -70,6 +70,17 @@ first that fails:
              narrower in f32), and their times beside the plain version's,
              the bound (the pairs inside the window and below kv_len) and
              SDPA's;
+  moe_decode the routed MoE kernel pair (``kernels/moe_decode``) at one
+             layer of qwen2-moe-a2.7b, deepseek-v2-lite-16b and
+             jamba-v0.1-52b at full width, one decode step of B 4 in bf16
+             on router-like routes: y within 2^-7 of the plain version's,
+             normwise, at both of the gate / up kernel's column tiles; two
+             controls that must land outside it (every expert id shifted by
+             one, the shared expert left out); the pair's time by CUDA
+             events and each kernel's by the profiler beside the bound of
+             the call's own routes (the distinct experts and the shared
+             ones read once, at 3.35 TB/s), the plain version's time and
+             the capacity path's it replaces;
   serve      the serving path: ``repro_torch.launch.serve`` at full width
              (llama3.2-1b, bf16, seeded random weights; 6 requests of batch
              4, 1024-token prompts, 32 generated tokens, three distinct
@@ -121,7 +132,9 @@ first that fails:
              qwen2-moe-a2.7b at full width and depth (24 layers, d 2048, 16
              / 16 heads of 128, 60 routed experts top-4 + 4 shared, bf16,
              seeded weights; the serve phase's requests), wgmma launches =
-             layers x prefills, splitkv = layers x decode steps, simt none;
+             layers x prefills, splitkv = layers x decode steps, simt none,
+             the routed MoE pair 2 x MoE layers x decode steps (prefill on
+             the capacity path);
              the tier's caches bit-equal to fresh prefills, which also count
              each MoE layer's dropped (token, k) pairs at capacity factor
              1.25; a traced hit request; with the routing pinned to an f32
@@ -2584,6 +2597,165 @@ def phase_encode(dev, smi: str) -> dict:
 
 
 
+# -- the routed MoE decode kernels (kernels/moe_decode) ------------------------
+
+MOE_DECODE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
+                    "jamba-v0.1-52b")
+MOE_DECODE_BATCH = 4
+#: The kernels' y against the plain version's on the same bf16 inputs,
+#: normwise (``|got - want| / |want|``): both sum in fp32 and round once,
+#: so they differ by the sums' order and a bf16 step; a wrong expert or a
+#: shared expert left out moves y by about its own size.
+MOE_DECODE_TOL = 2.0 ** -7
+MOE_KERNELS = ("moe_up_kernel", "moe_down_kernel")
+
+
+def moe_decode_bound_ms(d: int, f: int, n_experts: int, n_shared: int,
+                        n_tok: int, top_k: int, itemsize: int = 2) -> float:
+    """Least time for one call of the kernel pair: the distinct routed
+    experts' and the shared experts' three matrices (d x f each) read once,
+    x read, h (fp32) written and read, y written, over the HBM rate."""
+    n_bytes = (itemsize * 3 * d * f * (n_experts + n_shared)
+               + itemsize * 2 * n_tok * d
+               + 4 * 2 * n_tok * (top_k + n_shared) * f)
+    return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def moe_device_us(fn, calls: int = 50) -> dict:
+    """Mean device us of each MoE kernel's launch (one a call) and of the
+    pair, with the launches the profiler recorded, and the device us of all
+    the work of ``calls`` calls over ``calls``, from ``device_profile``."""
+    fn()
+    prof = device_profile(lambda: [fn() for _ in range(calls)])
+    ops = prof.get("ops")
+    if not ops:
+        return {"not_measured": prof.get("not_measured")}
+    per, seen = {}, {}
+    for name in MOE_KERNELS:
+        hits = [o for key, o in ops.items() if name in key]
+        seen[name] = sum(o["count"] for o in hits)
+        per[name] = (sum(o["count"] * o["mean_us"] for o in hits)
+                     / max(seen[name], 1))
+    return {**per, "pair": sum(per.values()), "launches_seen": seen,
+            "calls": calls, "all": 1e6 * prof["device_busy_s"] / calls}
+
+
+def moe_decode_case(arch: str, dev, seed: int) -> dict:
+    """One MoE layer of ``arch`` at full width, bf16, one decode step of
+    MOE_DECODE_BATCH tokens on router-like routes (top-k of random
+    probabilities, so tokens may share experts): the kernels against the
+    plain version at both column tiles, two defects the tolerance must
+    catch, and the times of the pair, the plain version and the capacity
+    path it replaces, beside the bound of this call's own routes."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_decode
+    from repro_torch.models import layers
+
+    cfg = get_config(arch)
+    m, d, b = cfg.moe, cfg.d_model, MOE_DECODE_BATCH
+    f = m.d_ff_expert or cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape):
+        return (torch.randn(shape, generator=gen, device=dev)
+                / math.sqrt(shape[-2])).to(torch.bfloat16)
+
+    we = [draw(m.n_routed, d, f), draw(m.n_routed, d, f),
+          draw(m.n_routed, f, d)]
+    ws = ([draw(d, m.n_shared * f), draw(d, m.n_shared * f),
+           draw(m.n_shared * f, d)] if m.n_shared else [None] * 3)
+    probs = torch.softmax(torch.randn((b, m.n_routed), generator=gen,
+                                      device=dev), -1)
+    gates, expert = torch.topk(probs, m.top_k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    n_experts = int(expert.unique().numel())
+
+    def kernel():
+        return moe_decode.routed_moe(x, expert, gates, *we, *ws)
+
+    def plain():
+        return moe_decode.plain(x, expert, gates, *we, *ws)
+
+    def normwise(got, want):
+        return float((got.float() - want.float()).norm()
+                     / want.float().norm())
+
+    route = layers.MoERoute(
+        probs=probs[:, None], gates=gates[:, None], expert=expert,
+        slot=torch.zeros_like(expert),
+        keep=torch.ones_like(expert, dtype=torch.bool),
+        onehot=torch.nn.functional.one_hot(expert, m.n_routed).float(),
+        cap=m.top_k)
+    p = dict(zip(("we_gate", "we_up", "we_down"), we))
+    if m.n_shared:
+        p.update(zip(("ws_gate", "ws_up", "ws_down"), ws))
+
+    def capacity():
+        return layers._capacity_moe(cfg, p, x[:, None], x[:, None],
+                                    lambda t: t, route)
+
+    with torch.no_grad():
+        want = plain()
+        err = normwise(kernel(), want)
+        err32 = normwise(moe_decode._launch(x, expert, gates, *we, tuple(ws),
+                                            32), want)
+        controls = {"wrong_expert": normwise(moe_decode.routed_moe(
+            x, (expert + 1) % m.n_routed, gates, *we, *ws), want)}
+        if m.n_shared:
+            controls["no_shared_expert"] = normwise(
+                moe_decode.routed_moe(x, expert, gates, *we), want)
+        capacity_err = normwise(capacity()[:, 0], want)
+        torch.cuda.synchronize()
+        ms = cuda_ms(kernel, 50, 7)
+        dev_us = moe_device_us(kernel)
+        up32_us = moe_device_us(lambda: moe_decode._launch(
+            x, expert, gates, *we, tuple(ws), 32)).get("moe_up_kernel")
+        plain_ms = cuda_ms(plain, 3, 3)
+        capacity_ms = cuda_ms(capacity, 20, 5)
+        capacity_us = moe_device_us(capacity, calls=20).get("all")
+    bound_ms = moe_decode_bound_ms(d, f, n_experts, m.n_shared, b, m.top_k)
+    pair_us = dev_us.get("pair")
+    ok = (err <= MOE_DECODE_TOL and err32 <= MOE_DECODE_TOL
+          and all(v > MOE_DECODE_TOL for v in controls.values()))
+    del we, ws, p, route
+    torch.cuda.empty_cache()
+    return {"arch": arch, "ok": ok, "batch": b, "dtype": "bfloat16",
+            "shape": {"d": d, "f": f, "experts": m.n_routed,
+                      "top_k": m.top_k, "n_shared": m.n_shared},
+            "distinct_experts": n_experts, "normwise_err": err,
+            "normwise_err_tile32": err32, "controls": controls,
+            "capacity_normwise_err": capacity_err,
+            "ms": ms, "device_us": dev_us, "up_tile32_device_us": up32_us,
+            "plain_ms": plain_ms, "capacity_ms": capacity_ms,
+            "capacity_device_us": capacity_us,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound_events": bound_ms / ms,
+            "share_of_bound_device": (None if not pair_us
+                                      else 1e3 * bound_ms / pair_us)}
+
+
+def phase_moe_decode(dev) -> dict:
+    import torch
+    from repro_torch.kernels import moe_decode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = [moe_decode_case(arch, dev, seed=2600 + i)
+            for i, arch in enumerate(MOE_DECODE_ARCHS)]
+    ok = all(r["ok"] for r in rows)
+    emit("moe_decode", ok=ok, tol=MOE_DECODE_TOL, rows=rows,
+         build_log=moe_decode.LIBRARY.log[-2000:],
+         sass_instructions=sass_instructions(moe_decode.LIBRARY))
+    if not ok:
+        raise SystemExit("the routed MoE kernels disagree with their plain "
+                         "version, or a control was not caught: "
+                         + ", ".join(r["arch"] for r in rows if not r["ok"]))
+    return {r["arch"]: r for r in rows}
+
+
 # -- the MoE serving path (qwen2-moe-a2.7b) ------------------------------------
 
 MOE_SERVE_ARGS = ["--arch", "qwen2-moe-a2.7b", "--no-reduced", "--requests",
@@ -2655,7 +2827,7 @@ def phase_moe_serve(dev, smi: str) -> dict:
 
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ttl_scan
+    from repro_torch.kernels import moe_decode, ttl_scan
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import forward, layers
     from repro_torch.serve import prefill
@@ -2668,11 +2840,13 @@ def phase_moe_serve(dev, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     fa.reset_launches()
     ttl_scan.ttl_cost_surface.launches = 0
+    moe_decode.launches = 0
     t0 = time.perf_counter()
     res = launch_serve.run(args)
     wall = time.perf_counter() - t0
     route_launches = dict(fa.flash_attention_bshd.route_launches)
     ttl_launches = ttl_scan.ttl_cost_surface.launches
+    moe_launches = moe_decode.launches
     peak = torch.cuda.max_memory_allocated(dev)
     cfg, params, tier = res["cfg"], res["params"], res["tier"]
     param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
@@ -2683,6 +2857,11 @@ def phase_moe_serve(dev, smi: str) -> dict:
     want_routes = {"wgmma": cfg.n_layers * prefills,
                    "splitkv": cfg.n_layers * steps, "simt": 0}
     gates["route_launches"] = route_launches == want_routes
+    # The routed MoE kernels: a pair a MoE layer in each decode forward,
+    # none in prefill (S x top_k above the capacity: the capacity path).
+    n_moe = sum(spec.mlp == "moe" for spec in cfg.layers())
+    want_moe = 2 * n_moe * steps
+    gates["moe_decode_launches"] = moe_launches == want_moe > 0
     gates["three_misses_three_hits"] = res["hit"] == [False] * 3 + [True] * 3
     tokens = torch.stack(res["tokens"])
     gates["tokens"] = (tuple(tokens.shape) == (args.requests, args.batch,
@@ -2815,6 +2994,8 @@ def phase_moe_serve(dev, smi: str) -> dict:
          params=cfg.param_count(), param_bytes=param_bytes,
          prefills=prefills, decode_steps=steps,
          route_launches=route_launches, route_launches_expected=want_routes,
+         moe_decode_launches=moe_launches,
+         moe_decode_launches_expected=want_moe,
          ttl_scan_launches=ttl_launches,
          prefill_ms=[1e3 * x for x in prefill_s],
          decode_ms_per_step=1e3 * decode_s / steps,
@@ -2846,7 +3027,8 @@ def phase_moe_serve(dev, smi: str) -> dict:
     if not ok:
         raise SystemExit("MoE serving path check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
-    return {"routes": route_launches, "simt_gate": simt_launches}
+    return {"routes": route_launches, "simt_gate": simt_launches,
+            "moe_decode": moe_launches}
 
 
 def tree_slice(tree, n: int):
@@ -3387,8 +3569,10 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
 
 def phase_mixers(dev, smi: str) -> dict:
     import torch
+    from repro_torch.kernels import moe_decode
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    moe_decode.launches = 0
     runs, routes = [], {"wgmma": 0, "splitkv": 0, "simt": 0}
     for arch, n_layers in MIXER_RUNS:
         row, r = mixer_run(arch, n_layers, dev)
@@ -3406,11 +3590,12 @@ def phase_mixers(dev, smi: str) -> dict:
     emit("mixers", ok=ok, nvidia_smi=smi, gates=gates, runs=runs,
          mixer_tol=MIXER_TOL, mixer_check_layers=MIXER_CHECK_LAYERS,
          layer0_cache_tol=LAYER0_CACHE_TOL,
-         reduced=reduced, reduced_tol=REDUCED_TOL, route_launches=routes)
+         reduced=reduced, reduced_tol=REDUCED_TOL, route_launches=routes,
+         moe_decode_launches=moe_decode.launches)
     if not ok:
         raise SystemExit("mixer check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
-    return routes
+    return {**routes, "moe_decode": moe_decode.launches}
 
 DIST_ARCH = "llama3.2-1b"
 PIPE_BATCH, PIPE_SEQ, PIPE_MB = 4, 1024, 4
@@ -3687,6 +3872,43 @@ def phase_dist(dev, smi: str, procs) -> dict:
                                 for e in examples.values())}
 
 
+def moe_decode_entry(rows: dict, serve_launches: int,
+                     mixers_launches: int) -> dict:
+    """The summary's row of the routed MoE kernel pair: qwen2-moe's B 4
+    decode call, the other two configs beside it."""
+    q = rows["qwen2-moe-a2.7b"]
+    keys = ("shape", "distinct_experts", "normwise_err", "normwise_err_tile32",
+            "ms", "device_us", "up_tile32_device_us", "plain_ms",
+            "capacity_ms", "capacity_device_us", "bound_ms",
+            "share_of_bound_device")
+    return {
+        "name": "moe_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_decode.cu",
+        "kernels": list(MOE_KERNELS),
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package's apply_moe is "
+                         "plain jnp; in decode its capacity buffer is almost "
+                         "all zeros",
+        "launches": serve_launches + mixers_launches,
+        "launches_by_path": {"moe_serve": serve_launches,
+                             "mixers": mixers_launches},
+        "max_normwise_err": max(max(r["normwise_err"],
+                                    r["normwise_err_tile32"])
+                                for r in rows.values()),
+        **{k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "device_us", "share_of_bound_device",
+                             "capacity_ms", "capacity_device_us")},
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the routed pairs; "
+                        "the capacity path it replaces is the yardstick "
+                        "(capacity_ms)",
+        "shape": q["shape"], "batch": q["batch"],
+        "call": "one layer, one decode step, bf16, router-like routes",
+        "deepseek_v2_lite": {k: rows["deepseek-v2-lite-16b"][k] for k in keys},
+        "jamba": {k: rows["jamba-v0.1-52b"][k] for k in keys},
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -3702,13 +3924,14 @@ def main() -> int:
               "of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import flash_attention, ttl_scan
+    from repro_torch.kernels import flash_attention, moe_decode, ttl_scan
     from repro_torch.kernels.ops import resolve_device
 
     dev = resolve_device("cuda")
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    libraries = (ttl_scan.LIBRARY, *flash_attention.LIBRARIES.values())
+    libraries = (ttl_scan.LIBRARY, *flash_attention.LIBRARIES.values(),
+                 moe_decode.LIBRARY)
     for lib in libraries:            # one nvcc per source, all at once
         lib.start()
     for lib in libraries:
@@ -3727,6 +3950,7 @@ def main() -> int:
         launches = phase_replay(dev)
         live = phase_live(dev)
         flash = phase_flash(dev)
+        moe_kern = phase_moe_decode(dev)
         serve = phase_serve(dev)
         train = phase_train(dev, smi)
         encode = phase_encode(dev, smi)
@@ -3842,6 +4066,7 @@ def main() -> int:
                                   "dim 8 padded to 64); it takes no bf16 "
                                   "call",
                     d256=moe_rows("simt_d256")),
+        moe_decode_entry(moe_kern, moe["moe_decode"], mixers["moe_decode"]),
     ]}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({**RESULT, "summary": summary}, indent=1))

@@ -3,6 +3,9 @@
   ttl_scan  -- batched ExpectedCost(TTL) surface (CUDA C++, csrc/ttl_scan.cu)
   flash_attention -- streaming softmax attention (CUDA C++,
                      csrc/flash_attention.cu)
+  moe_decode -- the routed MoE path: gate / up, then down and combine,
+                over the experts a call chose (CUDA C++,
+                csrc/moe_decode.cu), and its plain version
   build     -- nvcc build and ctypes loading of the kernel sources
   ref       -- the plain PyTorch version of every kernel, and the RWKV6
                recurrence's oracle

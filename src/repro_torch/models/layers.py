@@ -51,6 +51,7 @@ from ..distributed.sharding import (_partial_where, batch_local, batch_mean,
                                     current_rules, elementwise, gather_fsdp,
                                     local_of, shard, split_start, whole,
                                     write_seq)
+from ..kernels import moe_decode
 from ..kernels.flash_attention import (HEAD_DIMS, flash_attention_bshd,
                                        softmax_scale)
 from ..tracing import span
@@ -731,18 +732,67 @@ def apply_moe(cfg, p, x):
     On DTensors the routing, the scatter and the gather run on each rank's
     own sequences (routing groups are sequences, so nothing crosses ranks),
     and the expert products on the DTensor buffer as the rules shard it.
+
+    When no pair can be dropped (``S * top_k <= cap``: every decode step),
+    no gradient is needed, the tensors are plain and the kernels take the
+    shapes (:func:`_takes_routed`), the buffer would be almost all zeros:
+    the routed pairs and the shared expert go through
+    :func:`repro_torch.kernels.moe_decode.routed_moe` instead (its kernels
+    on the card, its plain version on the CPU), the same experts and gates,
+    the routed sum and the shared expert added in fp32 and rounded once.
     """
     with span("layer.moe"):
         return _apply_moe(cfg, p, x)
+
+
+def _takes_routed(cfg, p, x, cap: int) -> bool:
+    """Whether :func:`apply_moe` takes the routed path: every pair kept
+    (a pair's rank is below ``S * top_k``), no gradient, plain tensors,
+    shapes the kernels take."""
+    m = cfg.moe
+    b, s, d = x.shape
+    return (s * m.top_k <= cap
+            and not _needs_grad(x, *p.values())
+            and all(getattr(t, "placements", None) is None
+                    for t in (x, *p.values()))
+            and moe_decode.fits(b * s, m.top_k, d, p["we_gate"].shape[-1],
+                                x.dtype))
 
 
 def _apply_moe(cfg, p, x):
     m = cfg.moe
     b, s, d = x.shape
     xl, wrap = batch_local(x)
-    bl = xl.shape[0]
     with span("moe.route"):
         route = moe_route(cfg, {"router": whole(_w(p["router"], F32), x)}, xl)
+    if _takes_routed(cfg, p, x, route.cap):
+        with span("moe.routed"):
+            names = ("we_gate", "we_up", "we_down") + (
+                ("ws_gate", "ws_up", "ws_down") if m.n_shared else ())
+            combined = moe_decode.routed_moe(
+                x.reshape(b * s, d).contiguous(),
+                route.expert.reshape(b * s, m.top_k),
+                route.gates.reshape(b * s, m.top_k),
+                *(_w(p[k], x.dtype) for k in names)).reshape(b, s, d)
+    else:
+        combined = _capacity_moe(cfg, p, x, xl, wrap, route)
+
+    # load-balance aux loss (Switch): mean_prob * mean_assignment per expert
+    bl = xl.shape[0]
+    with span("moe.aux"):
+        density = batch_mean(route.onehot.reshape(bl, s, m.top_k, m.n_routed)
+                             .sum(2).mean((0, 1)), x)
+        mean_prob = batch_mean(route.probs.mean((0, 1)), x)
+        aux = (density * mean_prob).sum() * m.n_routed * m.router_aux_weight
+    return shard(combined, ("batch", "seq", "d_model")), aux
+
+
+def _capacity_moe(cfg, p, x, xl, wrap, route):
+    """The capacity path: dispatch into the buffers, the dense expert
+    products, the gather and gate-weighted sum, the shared expert."""
+    m = cfg.moe
+    b, s, d = x.shape
+    bl = xl.shape[0]
     with span("moe.dispatch"):
         bidx = torch.arange(bl, device=x.device)[:, None]
         src = xl.repeat_interleave(m.top_k, dim=1)                # [b, tk, d]
@@ -773,14 +823,7 @@ def _apply_moe(cfg, p, x):
             sh_h = F.silu(g.float()).to(x.dtype) * u
             combined = combined + torch.einsum("bsf,fd->bsd", sh_h,
                                                _w(p["ws_down"], x.dtype))
-
-    # load-balance aux loss (Switch): mean_prob * mean_assignment per expert
-    with span("moe.aux"):
-        density = batch_mean(route.onehot.reshape(bl, s, m.top_k, m.n_routed)
-                             .sum(2).mean((0, 1)), x)
-        mean_prob = batch_mean(route.probs.mean((0, 1)), x)
-        aux = (density * mean_prob).sum() * m.n_routed * m.router_aux_weight
-    return shard(combined, ("batch", "seq", "d_model")), aux
+    return combined
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,9 @@ these names):
 ``serve.decode_step`` (``launch.serve.serve``); ``model.embed``,
 ``model.head`` (``models.transformer.forward``); ``layer.attn`` with
 ``attn.qkv``, ``attn.cache_write``, ``attn.kernel``, ``attn.out``
-(``models.layers.apply_attn``); ``layer.moe`` with ``moe.route``,
-``moe.dispatch``, ``moe.experts``, ``moe.combine``, ``moe.shared``,
+(``models.layers.apply_attn``); ``layer.moe`` with ``moe.route``, then
+on the capacity path ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
+``moe.shared``, or on the routed path (decode) ``moe.routed``, then
 ``moe.aux`` (``models.layers.apply_moe``).
 """
 

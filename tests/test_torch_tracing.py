@@ -25,8 +25,12 @@ from repro_torch.serve.kv_tier import KVTierManager
 
 CPU = torch.device("cpu")
 ATTN_CHILDREN = {"attn.qkv", "attn.cache_write", "attn.kernel", "attn.out"}
-MOE_CHILDREN = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+#: ``layer.moe``'s children on each of its paths: the capacity buffers
+#: (prefill here) and the routed pairs (every decode step).
+MOE_CAPACITY = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine",
                 "moe.shared", "moe.aux"}
+MOE_ROUTED = {"moe.route", "moe.routed", "moe.aux"}
+MOE_CHILDREN = MOE_CAPACITY | MOE_ROUTED
 #: Widening of a span's interval when its profiler range is held to it.
 SLACK_NS = 100_000
 
@@ -39,7 +43,12 @@ def empty_buffer():
 
 
 def _model(arch):
+    """The reduced ``arch`` at the full configs' capacity factor, so that a
+    prefill (S 12) may drop pairs and takes the capacity path, and a decode
+    step the routed one."""
     cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=get_config(arch).moe.capacity_factor))
     if arch == "qwen2-moe-a2.7b":
         cfg = dataclasses.replace(cfg, n_layers=3)
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -108,9 +117,15 @@ def test_profiler_records_nested_spans_as_the_layout_predicts(arch):
     for name, n in names.items():
         if name in ATTN_CHILDREN - {"attn.cache_write"}:
             assert n == names["layer.attn"], name
-        elif name in MOE_CHILDREN:
-            assert n == names["layer.moe"], name
     assert names["attn.cache_write"] == names["layer.attn"]
+    # each layer.moe holds one path's children: routed in every decode
+    # step, capacity in every prefill
+    capacity = MOE_CAPACITY - ({"moe.shared"} if not cfg.moe.n_shared else set())
+    assert {n for n in names if n in MOE_CHILDREN} == capacity | MOE_ROUTED
+    assert names["moe.route"] == names["moe.aux"] == names["layer.moe"]
+    assert names["moe.routed"] == n_moe * steps
+    for name in capacity - MOE_ROUTED:
+        assert names[name] == n_moe * misses, name
     want_parent = {"serve.request": None, "serve.tier": "serve.request",
                    "serve.prefill": "serve.request",
                    "serve.clone": "serve.request",
@@ -129,6 +144,14 @@ def test_profiler_records_nested_spans_as_the_layout_predicts(arch):
     in_steps = sum(name == "layer.moe" and buf[p][0] == "serve.decode_step"
                    for name, _a, _b, p in buf)
     assert in_steps == n_moe * steps
+    paths = {}                  # layer.moe's index -> (its parent, children)
+    for name, _a, _b, p in buf:
+        if name in MOE_CHILDREN:
+            paths.setdefault(p, (buf[buf[p][3]][0], set()))[1].add(name)
+    assert len(paths) == names["layer.moe"]
+    for above, children in paths.values():
+        want = MOE_ROUTED if above == "serve.decode_step" else capacity
+        assert children == want, (above, children)
 
 
 def _largest_wall_clock_step(fn):
