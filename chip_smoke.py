@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs fourteen
+(one nvcc per source for sm_90a, all started together), then runs fifteen
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -81,6 +81,17 @@ first that fails:
              the call's own routes (the distinct experts and the shared
              ones read once, at 3.35 TB/s), the plain version's time and
              the capacity path's it replaces;
+  mla_decode the MLA decode kernel pair (``kernels/mla_decode``) at
+             deepseek-v2-lite-16b's full width (16 heads, R 512, rope 64),
+             B 4, bf16, kv_len 16,385 and 16,447 of a 16,448-row cache (the
+             ``dsv2lite-longdoc-hits`` cell's first and last decode steps):
+             o within 2^-7 of the plain version's largest value, on random
+             keys and with the last key read planted; two controls that must
+             land outside it (the key count one short, one long, the key it
+             drops or adds planted); the pair's time by CUDA events and each
+             kernel's by the profiler beside the byte bound, the plain
+             version's, the absorbed einsums over every slot (the path it
+             replaced) and SDPA's over the decompressed per-head K / V;
   serve      the serving path: ``repro_torch.launch.serve`` at full width
              (llama3.2-1b, bf16, seeded random weights; 6 requests of batch
              4, 1024-token prompts, 32 generated tokens, three distinct
@@ -166,7 +177,9 @@ first that fails:
              (2 of 96 layers, D 192, group 12) at full width, weights drawn
              per layer:
              a 1,024-token bf16 prefill and 8 decode steps, finite, the
-             launches per route, the first layer's caches within 2^-5 of a
+             launches per route, the MLA decode pair's 2 x MLA layers x
+             steps in bf16 and none in prefill or in f32, the first
+             layer's caches within 2^-5 of a
              prefill of the whole sequence; in f32 activations on the first
              8 layers each step's logits within 2^-4 of each row's scale of
              a full forward of the extended sequence where both compute the
@@ -2621,8 +2634,8 @@ def moe_decode_bound_ms(d: int, f: int, n_experts: int, n_shared: int,
     return 1e3 * n_bytes / HBM_BYTES_PER_S
 
 
-def moe_device_us(fn, calls: int = 50) -> dict:
-    """Mean device us of each MoE kernel's launch (one a call) and of the
+def pair_device_us(fn, names: tuple = MOE_KERNELS, calls: int = 50) -> dict:
+    """Mean device us of each named kernel's launch (one a call) and of the
     pair, with the launches the profiler recorded, and the device us of all
     the work of ``calls`` calls over ``calls``, from ``device_profile``."""
     fn()
@@ -2631,7 +2644,7 @@ def moe_device_us(fn, calls: int = 50) -> dict:
     if not ops:
         return {"not_measured": prof.get("not_measured")}
     per, seen = {}, {}
-    for name in MOE_KERNELS:
+    for name in names:
         hits = [o for key, o in ops.items() if name in key]
         seen[name] = sum(o["count"] for o in hits)
         per[name] = (sum(o["count"] * o["mean_us"] for o in hits)
@@ -2711,12 +2724,12 @@ def moe_decode_case(arch: str, dev, seed: int) -> dict:
         capacity_err = normwise(capacity()[:, 0], want)
         torch.cuda.synchronize()
         ms = cuda_ms(kernel, 50, 7)
-        dev_us = moe_device_us(kernel)
-        up32_us = moe_device_us(lambda: moe_decode._launch(
+        dev_us = pair_device_us(kernel)
+        up32_us = pair_device_us(lambda: moe_decode._launch(
             x, expert, gates, *we, tuple(ws), 32)).get("moe_up_kernel")
         plain_ms = cuda_ms(plain, 3, 3)
         capacity_ms = cuda_ms(capacity, 20, 5)
-        capacity_us = moe_device_us(capacity, calls=20).get("all")
+        capacity_us = pair_device_us(capacity, calls=20).get("all")
     bound_ms = moe_decode_bound_ms(d, f, n_experts, m.n_shared, b, m.top_k)
     pair_us = dev_us.get("pair")
     ok = (err <= MOE_DECODE_TOL and err32 <= MOE_DECODE_TOL
@@ -2754,6 +2767,173 @@ def phase_moe_decode(dev) -> dict:
                          "version, or a control was not caught: "
                          + ", ".join(r["arch"] for r in rows if not r["ok"]))
     return {r["arch"]: r for r in rows}
+
+
+# -- MLA decode in latent space (kernels/mla_decode) --------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_DECODE_BATCH, MLA_DECODE_MAX_LEN = 4, 16_448
+#: The ``dsv2lite-longdoc-hits`` cell's key counts at its first and last
+#: decode step: a 16,384-token document's last prompt position re-decoded,
+#: then 63 steps, in a 16,448-row cache.
+MLA_DECODE_KV_LENS = (16_385, 16_447)
+#: o_lat against the plain version's on the same bf16 inputs, by the
+#: largest |got - want| over the largest |want|: both keep the softmax in
+#: fp32 and round p (the kernels before the softmax's division, the plain
+#: version after it) and o once.  A key count off by one, its key planted
+#: to dominate every head, moves o by about its own size.
+MLA_DECODE_TOL = 2.0 ** -7
+MLA_KERNELS = ("mla_decode_split_kernel", "mla_decode_combine_kernel")
+
+
+def mla_decode_bound_ms(b: int, heads: int, kv_len: int, latent: int = 512,
+                        rope: int = 64, itemsize: int = 2) -> float:
+    """Least time for one call of the kernel pair: each sequence's
+    ``kv_len`` latent and rope rows read once, the queries read and o
+    written, over the HBM rate (its FLOPs take a tenth of that)."""
+    n_bytes = itemsize * b * (kv_len * (latent + rope)
+                              + heads * (latent + rope) + heads * latent)
+    return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def mla_decode_case(kv_len: int, dev, seed: int) -> dict:
+    """One MLA layer's decode attention of deepseek-v2-lite-16b at full
+    width (16 heads, R 512, rope 64), B 4, bf16, ``kv_len`` keys of a
+    16,448-row cache: the kernel pair against the plain version, twice
+    (random keys; the last key read planted), two controls that must land
+    outside the tolerance (the key count one short with its last key
+    planted, one long with the row past it planted), and the times of the
+    pair, the plain version, the absorbed einsums over every slot (the path
+    it replaced) and SDPA over the per-head K / V decompressed from the
+    same rows, beside the pair's bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode
+    from repro_torch.models import layers
+
+    cfg = get_config(MLA_ARCH)
+    m, b, h = cfg.mla, MLA_DECODE_BATCH, cfg.n_heads
+    r, dr, dn, dv = (m.kv_lora_rank, m.qk_rope_dim, m.qk_nope_dim,
+                     m.v_head_dim)
+    scale = (dn + dr) ** -0.5 * layers.softmax_factor(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q_lat, q_rope = draw(b, 1, h, r), draw(b, 1, h, dr)
+    ckv = draw(b, MLA_DECODE_MAX_LEN, r)
+    krope = draw(b, MLA_DECODE_MAX_LEN, dr)
+    q_nope = draw(b, 1, h, dn).to(bf)
+    w_uk = (draw(r, h, dn) / r ** 0.5).to(bf)
+    w_uv = (draw(r, h, dv) / r ** 0.5).to(bf)
+
+    def planted(row):
+        """The caches with ``row`` moved along each sequence's mean query,
+        so that it takes nearly all of every head's softmax."""
+        mean = q_lat[:, 0].mean(1)
+        c = ckv.clone()
+        c[:, row] += 60 * mean / mean.norm(dim=-1, keepdim=True)
+        return c.to(bf)
+
+    args = (q_lat.to(bf), q_rope.to(bf))
+    caches = (ckv.to(bf), krope.to(bf))
+
+    def err(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    def kernel():
+        return mla_decode.mla_decode(*args, *caches, kv_len, scale)
+
+    def plain():
+        return mla_decode.plain(*args, *caches, kv_len, scale)
+
+    def einsum_all_slots():
+        ckv_f = caches[0].float()
+        ql = torch.einsum("bshk,rhk->bshr", q_nope.float(), w_uk.float())
+        lg = (torch.einsum("bshr,btr->bhst", ql, ckv_f)
+              + torch.einsum("bshk,btk->bhst", args[1].float(),
+                             caches[1].float())) * scale
+        valid = torch.arange(MLA_DECODE_MAX_LEN, device=dev) < kv_len
+        p = torch.softmax(lg.masked_fill(~valid, -1e30), dim=-1)
+        return torch.einsum("bhst,btr->bshr", p, ckv_f)
+
+    with torch.no_grad():
+        before = mla_decode.launches
+        got = kernel()
+        launches_a_call = mla_decode.launches - before
+        errs = {"random_keys": err(got, plain())}
+        controls = {}
+        for name, row, n in (("one_key_short", kv_len - 1, kv_len - 1),
+                             ("one_key_long", kv_len, kv_len + 1)):
+            c = (planted(row), caches[1])
+            want = mla_decode.plain(*args, *c, kv_len, scale)
+            if row < kv_len:
+                errs["last_key_planted"] = err(
+                    mla_decode.mla_decode(*args, *c, kv_len, scale), want)
+            controls[name] = err(mla_decode.mla_decode(*args, *c, n, scale),
+                                 want)
+            del c
+        k = torch.cat([torch.einsum("btr,rhk->bhtk", caches[0][:, :kv_len],
+                                    w_uk),
+                       caches[1][:, None, :kv_len].expand(b, h, kv_len, dr)],
+                      -1)
+        v = torch.einsum("btr,rhv->bhtv", caches[0][:, :kv_len], w_uv)
+        q = torch.cat([q_nope, args[1]], -1).transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+        torch.cuda.synchronize()
+        ms = cuda_ms(kernel, 50, 7)
+        dev_us = pair_device_us(kernel, MLA_KERNELS)
+        plain_ms = cuda_ms(plain, 3, 3)
+        einsum_ms = cuda_ms(einsum_all_slots, 3, 3)
+        library_ms = cuda_ms(sdpa, 20, 5)
+    bound_ms = mla_decode_bound_ms(b, h, kv_len, r, dr)
+    library_bound_ms = 1e3 * 2 * b * h * (kv_len * (dn + dr + dv)
+                                          + dn + dr + dv) / HBM_BYTES_PER_S
+    pair_us = dev_us.get("pair")
+    ok = (launches_a_call == 2
+          and all(e <= MLA_DECODE_TOL for e in errs.values())
+          and all(e > MLA_DECODE_TOL for e in controls.values()))
+    del k, v, q, ckv, krope, caches
+    torch.cuda.empty_cache()
+    return {"kv_len": kv_len, "ok": ok, "batch": b, "dtype": "bfloat16",
+            "shape": {"heads": h, "latent": r, "rope": dr,
+                      "max_len": MLA_DECODE_MAX_LEN},
+            "splits": mla_decode.split_plan(
+                b, kv_len, mla_decode._sm_count(torch.cuda.current_device())),
+            "launches_a_call": launches_a_call, "max_abs_err": errs,
+            "controls": controls, "ms": ms, "device_us": dev_us,
+            "plain_ms": plain_ms, "einsum_all_slots_ms": einsum_ms,
+            "library_ms": library_ms, "library_bound_ms": library_bound_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound_events": bound_ms / ms,
+            "share_of_bound_device": (None if not pair_us
+                                      else 1e3 * bound_ms / pair_us)}
+
+
+def phase_mla_decode(dev) -> dict:
+    import torch
+    from repro_torch.kernels import mla_decode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = [mla_decode_case(kv_len, dev, seed=2800 + i)
+            for i, kv_len in enumerate(MLA_DECODE_KV_LENS)]
+    ok = all(r["ok"] for r in rows)
+    emit("mla_decode", ok=ok, tol=MLA_DECODE_TOL, rows=rows,
+         build_log=mla_decode.LIBRARY.log[-2000:],
+         sass_instructions=sass_instructions(mla_decode.LIBRARY))
+    if not ok:
+        raise SystemExit("the MLA decode kernels disagree with their plain "
+                         "version, or a control was not caught: kv_len "
+                         + ", ".join(str(r["kv_len"]) for r in rows
+                                     if not r["ok"]))
+    return {r["kv_len"]: r for r in rows}
 
 
 # -- the MoE serving path (qwen2-moe-a2.7b) ------------------------------------
@@ -3310,11 +3490,14 @@ def decode_steps(cfg, params, toks):
     """Prefill ``MIXER_PROMPT`` tokens (each MoE call's drops per row
     counted), grow the caches, decode ``MIXER_STEPS`` more; returns
     (prefill logits, each step's last logits, the caches, per-call drops,
-    prefill s, decode s)."""
+    prefill s, decode s, the MLA decode kernels' launches in the prefill
+    and in the decode steps)."""
     import torch
+    from repro_torch.kernels import mla_decode
     from repro_torch.models import forward
     from repro_torch.serve import grow_cache
 
+    mla_decode.launches = 0
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3324,6 +3507,7 @@ def decode_steps(cfg, params, toks):
         caches = grow_cache(cfg, caches, MIXER_PROMPT + MIXER_STEPS)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        mla_prefill = mla_decode.launches
         dec = []
         for j in range(MIXER_STEPS):
             pos = MIXER_PROMPT + j
@@ -3331,7 +3515,8 @@ def decode_steps(cfg, params, toks):
                                mode="decode", caches=caches, pos=pos)[0][:, -1])
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    return logits, dec, caches, rd.drops(), t1 - t0, t2 - t1
+    mla = {"prefill": mla_prefill, "decode": mla_decode.launches - mla_prefill}
+    return logits, dec, caches, rd.drops(), t1 - t0, t2 - t1, mla
 
 
 def layer0_caches(caches):
@@ -3414,9 +3599,9 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
     n = MIXER_PROMPT + MIXER_STEPS
 
     # bf16, the main path: prefill and decode on the kernels (MLA's decode
-    # is the absorbed form: no kernel).
+    # in latent space on the MLA decode pair, two launches a layer a step).
     fa.reset_launches()
-    logits, dec, caches, drops16, prefill_s, decode_s = decode_steps(
+    logits, dec, caches, drops16, prefill_s, decode_s, mla16 = decode_steps(
         cfg, params, toks)
     routes = dict(fa.flash_attention_bshd.route_launches)
     finite = bool(torch.isfinite(logits).all()) and all(
@@ -3441,7 +3626,7 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
     cfg32 = dataclasses.replace(cfg, act_dtype="float32", n_layers=n_chk)
     p32 = dict(params, blocks={k: tree_slice(v, reps)
                                for k, v in params["blocks"].items()})
-    _lg, dec32, _c, drops32, _ps, _ds = decode_steps(cfg32, p32, toks)
+    _lg, dec32, _c, drops32, _ps, _ds, mla32 = decode_steps(cfg32, p32, toks)
     del _lg, _c
     steps = []
     for j in range(MIXER_STEPS):
@@ -3470,10 +3655,13 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
     routes32 = dict(fa.flash_attention_bshd.route_launches)
     want_routes = {"wgmma": n_attn + n_mla, "splitkv": n_attn * MIXER_STEPS,
                    "simt": 0}
+    want_mla = {"prefill": 0, "decode": 2 * n_mla * MIXER_STEPS}
     gates = {"finite": finite,
              "logits_not_all_zero": all(r["scale"] > 0 for s in steps
                                         for r in s),
              "route_launches": routes == want_routes,
+             "mla_decode_launches": mla16 == want_mla,
+             "mla_decode_launches_f32": mla32 == {"prefill": 0, "decode": 0},
              "layer0_caches": max(cache_err.values()) <= LAYER0_CACHE_TOL,
              "decode_vs_full_f32": all(r["ok"] for s in steps for r in s)}
     if mla is not None:
@@ -3485,6 +3673,8 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
            "batch": MIXER_BATCH, "prompt": MIXER_PROMPT, "steps": MIXER_STEPS,
            "gates": gates, "route_launches": routes,
            "route_launches_expected": want_routes,
+           "mla_decode_launches": mla16,
+           "mla_decode_launches_expected": want_mla,
            "route_launches_after_main_path": {k: routes32[k] - routes[k]
                                         for k in routes},
            "prefill_drops_per_row_bf16": [sum(c[b] for c in drops16)
@@ -3504,7 +3694,7 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
            "peak_memory_bytes": peak}
     del params, p32, dec, dec32
     torch.cuda.empty_cache()
-    return out, routes
+    return out, {**routes, "mla_decode": mla16["decode"]}
 
 
 def reduced_card_vs_cpu(arch: str, dev) -> tuple:
@@ -3574,10 +3764,12 @@ def phase_mixers(dev, smi: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     moe_decode.launches = 0
     runs, routes = [], {"wgmma": 0, "splitkv": 0, "simt": 0}
+    mla_launches = 0
     for arch, n_layers in MIXER_RUNS:
         row, r = mixer_run(arch, n_layers, dev)
         runs.append(row)
         routes = {k: routes[k] + r[k] for k in routes}
+        mla_launches += r["mla_decode"]
     reduced = []
     for arch in REDUCED_ARCHS:
         row, r = reduced_card_vs_cpu(arch, dev)
@@ -3591,11 +3783,13 @@ def phase_mixers(dev, smi: str) -> dict:
          mixer_tol=MIXER_TOL, mixer_check_layers=MIXER_CHECK_LAYERS,
          layer0_cache_tol=LAYER0_CACHE_TOL,
          reduced=reduced, reduced_tol=REDUCED_TOL, route_launches=routes,
-         moe_decode_launches=moe_decode.launches)
+         moe_decode_launches=moe_decode.launches,
+         mla_decode_launches=mla_launches)
     if not ok:
         raise SystemExit("mixer check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
-    return {**routes, "moe_decode": moe_decode.launches}
+    return {**routes, "moe_decode": moe_decode.launches,
+            "mla_decode": mla_launches}
 
 DIST_ARCH = "llama3.2-1b"
 PIPE_BATCH, PIPE_SEQ, PIPE_MB = 4, 1024, 4
@@ -3909,6 +4103,39 @@ def moe_decode_entry(rows: dict, serve_launches: int,
     }
 
 
+def mla_decode_entry(rows: dict, mixers_launches: int) -> dict:
+    """The summary's row of the MLA decode kernel pair: the cell's first
+    decode step (kv_len 16,385), its last beside it."""
+    first, last = (rows[k] for k in MLA_DECODE_KV_LENS)
+    keys = ("kv_len", "splits", "max_abs_err", "ms", "device_us", "plain_ms",
+            "einsum_all_slots_ms", "library_ms", "library_bound_ms",
+            "bound_ms", "share_of_bound_device")
+    return {
+        "name": "mla_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+        "kernels": list(MLA_KERNELS),
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package's apply_mla "
+                         "decode is plain jnp over every max_len slot in fp32 "
+                         "(einsum_all_slots_ms)",
+        "launches": mixers_launches,
+        "launches_by_path": {"mixers": mixers_launches},
+        "max_abs_err": max(max(r["max_abs_err"].values())
+                           for r in rows.values()),
+        **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "device_us", "share_of_bound_device",
+                                 "library_ms", "library_bound_ms",
+                                 "einsum_all_slots_ms")},
+        "library_note": "scaled_dot_product_attention over the per-head K / "
+                        "V decompressed from the same rows (K = [ckv w_uk ; "
+                        "krope], V = ckv w_uv), timed alone",
+        "shape": first["shape"], "batch": first["batch"],
+        "kv_len": first["kv_len"],
+        "call": "one MLA layer, one decode step, bf16",
+        "last_step": {k: last[k] for k in keys},
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -3924,14 +4151,15 @@ def main() -> int:
               "of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import flash_attention, moe_decode, ttl_scan
+    from repro_torch.kernels import (flash_attention, mla_decode, moe_decode,
+                                     ttl_scan)
     from repro_torch.kernels.ops import resolve_device
 
     dev = resolve_device("cuda")
     smi = nvidia_smi()
     t0 = time.perf_counter()
     libraries = (ttl_scan.LIBRARY, *flash_attention.LIBRARIES.values(),
-                 moe_decode.LIBRARY)
+                 moe_decode.LIBRARY, mla_decode.LIBRARY)
     for lib in libraries:            # one nvcc per source, all at once
         lib.start()
     for lib in libraries:
@@ -3951,6 +4179,7 @@ def main() -> int:
         live = phase_live(dev)
         flash = phase_flash(dev)
         moe_kern = phase_moe_decode(dev)
+        mla_kern = phase_mla_decode(dev)
         serve = phase_serve(dev)
         train = phase_train(dev, smi)
         encode = phase_encode(dev, smi)
@@ -4067,6 +4296,7 @@ def main() -> int:
                                   "call",
                     d256=moe_rows("simt_d256")),
         moe_decode_entry(moe_kern, moe["moe_decode"], mixers["moe_decode"]),
+        mla_decode_entry(mla_kern, mixers["mla_decode"]),
     ]}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({**RESULT, "summary": summary}, indent=1))

@@ -18,6 +18,7 @@ from .base import (  # noqa: F401
     MoECfg,
     RWKVCfg,
     ShapeConfig,
+    YarnCfg,
 )
 from . import (
     deepseek_coder_33b,

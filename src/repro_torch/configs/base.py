@@ -38,6 +38,25 @@ class MLACfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnCfg:
+    """YaRN rope scaling (arXiv:2309.00071) as DeepSeek-V2 declares it
+    (``rope_scaling`` of type ``yarn``) and Hugging Face's
+    ``DeepseekV2YarnRotaryEmbedding`` / ``yarn_get_mscale`` compute it:
+    the rotary frequencies blended between the original and the
+    ``factor``-stretched ones over the dims from ``beta_fast`` to
+    ``beta_slow`` rotations in ``original_max_position`` positions, cos /
+    sin scaled by ``mscale(mscale) / mscale(mscale_all_dim)``, and the
+    attention's softmax scale by ``mscale(mscale_all_dim) ** 2``."""
+
+    factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+
+@dataclasses.dataclass(frozen=True)
 class MambaCfg:
     d_state: int = 16
     d_conv: int = 4
@@ -82,6 +101,7 @@ class ModelConfig:
     rwkv: Optional[RWKVCfg] = None
     rope: str = "rope"             # rope | mrope | none
     rope_theta: float = 500000.0
+    yarn: Optional[YarnCfg] = None  # YaRN scaling of rope (None: plain)
     mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     causal: bool = True
     encoder_only: bool = False

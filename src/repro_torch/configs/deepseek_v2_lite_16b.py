@@ -6,9 +6,12 @@ vocab=102400, MLA kv_lora=512, 2 shared + 64 routed top-6 experts.
 (d_ff=10944) per the HF config; layers 1..26 are MoE.  MLA's compressed
 per-token cache (512+64 floats/layer, head-count independent) is what makes
 the long_500k decode cell feasible for this arch (DESIGN.md §4).
+Rope is YaRN as the HF config's ``rope_scaling`` declares it (factor 40
+over 4,096 original positions, beta_fast 32, beta_slow 1, mscale =
+mscale_all_dim = 0.707) on theta 10,000.
 """
 
-from .base import LayerSpec, MLACfg, MoECfg, ModelConfig
+from .base import LayerSpec, MLACfg, MoECfg, ModelConfig, YarnCfg
 
 CONFIG = ModelConfig(
     name="deepseek-v2-lite-16b",
@@ -26,5 +29,7 @@ CONFIG = ModelConfig(
                qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128),
     moe=MoECfg(n_routed=64, top_k=6, n_shared=2, d_ff_expert=1408),
     rope_theta=10000.0,
+    yarn=YarnCfg(factor=40.0, original_max_position=4096, beta_fast=32.0,
+                 beta_slow=1.0, mscale=0.707, mscale_all_dim=0.707),
     source="[arXiv:2405.04434; hf]",
 )

@@ -6,6 +6,9 @@
   moe_decode -- the routed MoE path: gate / up, then down and combine,
                 over the experts a call chose (CUDA C++,
                 csrc/moe_decode.cu), and its plain version
+  mla_decode -- MLA's decode attention in latent space over the cache
+                rows written so far, split over the keys, then merged
+                (CUDA C++, csrc/mla_decode.cu), and its plain version
   build     -- nvcc build and ctypes loading of the kernel sources
   ref       -- the plain PyTorch version of every kernel, and the RWKV6
                recurrence's oracle

@@ -24,8 +24,10 @@ the reference returns updated copies.  A caller that keeps a cache for
 reuse (the KV tier) decodes on a clone of it.
 
 Attention.  On a CUDA device :func:`apply_attn` and :func:`apply_mla` send
-every attention call within the flash kernel's contract (no logit softcap,
-head dims of at most the largest of
+every attention call (MLA's decode aside: it takes
+:mod:`repro_torch.kernels.mla_decode` where that kernel's shapes fit, its
+plain version otherwise; see :func:`apply_mla`) within the flash
+kernel's contract (no logit softcap, head dims of at most the largest of
 :data:`repro_torch.kernels.flash_attention.HEAD_DIMS`, others zero-padded up
 to the next compiled one, MLA's ``Dv < Dk`` by a zero-padded V, no gradient
 needed) through the kernel -- prefill with its sliding window, decode with
@@ -51,7 +53,7 @@ from ..distributed.sharding import (_partial_where, batch_local, batch_mean,
                                     current_rules, elementwise, gather_fsdp,
                                     local_of, shard, split_start, whole,
                                     write_seq)
-from ..kernels import moe_decode
+from ..kernels import mla_decode, moe_decode
 from ..kernels.flash_attention import (HEAD_DIMS, flash_attention_bshd,
                                        softmax_scale)
 from ..tracing import span
@@ -147,14 +149,69 @@ def _rotate_halves(x, cos, sin):
     return out.to(x.dtype)
 
 
-def apply_rope(x, positions, theta: float):
-    """x [B, S, H, D], positions [B, S] (or [S])."""
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """HF's ``yarn_get_mscale``: ``0.1 * mscale * ln(factor) + 1`` (1 for
+    ``factor <= 1``)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_inv_freq(dim: int, theta: float, yarn) -> torch.Tensor:
+    """YaRN's rotary frequencies [dim // 2] (fp32, on the CPU), as HF's
+    ``DeepseekV2YarnRotaryEmbedding`` forms them: the original ones for
+    the dims that turn more than ``beta_fast`` times in the original
+    context, the ones stretched by ``factor`` for those that turn fewer
+    than ``beta_slow`` times, and a linear ramp between."""
+    def corr_dim(rotations):
+        return (dim * math.log(yarn.original_max_position
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(corr_dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(corr_dim(yarn.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=F32) - low) / (high - low)).clamp(0, 1)
+    extra = _inv_freq(dim, theta, "cpu")
+    inter = 1.0 / (yarn.factor * theta ** (torch.arange(0, dim, 2, dtype=F32)
+                                           / dim))
+    return inter * ramp + extra * (1 - ramp)
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn_table(dim: int, theta: float, yarn, device) -> Tuple[torch.Tensor, float]:
+    """(frequencies on ``device``, cos / sin scale), once per configuration
+    and device."""
+    scale = (yarn_mscale(yarn.factor, yarn.mscale)
+             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+    return yarn_inv_freq(dim, theta, yarn).to(device), scale
+
+
+def softmax_factor(cfg) -> float:
+    """What YaRN multiplies the attention's softmax scale by:
+    ``yarn_mscale(factor, mscale_all_dim) ** 2`` (1 without YaRN; the JAX
+    package's configs, which tests hand the port, have no such field)."""
+    y = getattr(cfg, "yarn", None)
+    if y is None or not y.mscale_all_dim:
+        return 1.0
+    return yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+
+
+def apply_rope(x, positions, theta: float, yarn=None):
+    """x [B, S, H, D], positions [B, S] (or [S]); ``yarn`` a
+    :class:`~repro_torch.configs.base.YarnCfg` or None (plain rope)."""
     d = x.shape[-1]
     if positions.dim() == 1:
         positions = positions[None, :]
-    ang = positions.float()[..., None] * _inv_freq(d, theta, x.device)
-    return _rotate_halves(x, torch.cos(ang)[:, :, None, :],
-                          torch.sin(ang)[:, :, None, :])
+    if yarn is None:
+        ang = positions.float()[..., None] * _inv_freq(d, theta, x.device)
+        return _rotate_halves(x, torch.cos(ang)[:, :, None, :],
+                              torch.sin(ang)[:, :, None, :])
+    inv, scale = _yarn_table(d, float(theta), yarn, x.device)
+    ang = positions.float()[..., None] * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
+    return _rotate_halves(x, cos[:, :, None, :], sin[:, :, None, :])
 
 
 def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
@@ -182,7 +239,7 @@ def rotate(cfg, x, positions):
         if positions.dim() == 2:                     # text-only: replicate
             positions = positions[None].expand((3,) + tuple(positions.shape))
         return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
-    return apply_rope(x, positions, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta, getattr(cfg, "yarn", None))
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +262,12 @@ _ATTN_CHUNK_THRESHOLD = 4096 * 4096
 _ATTN_CHUNK = 512
 
 
-def _scores(qg, kf, softcap: float):
+def _scores(qg, kf, softcap: float, scale: Optional[float] = None):
     """fp32 logits ``[B, KV, G, S, T]`` of grouped queries ``qg``
     [B, S, KV, G, D] against fp32 keys ``kf`` [B, T, KV, D], scaled by
-    ``D ** -0.5`` and softcapped."""
-    scale = qg.shape[-1] ** -0.5
+    ``scale`` (``D ** -0.5`` if None) and softcapped."""
+    if scale is None:
+        scale = qg.shape[-1] ** -0.5
     logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), kf) * scale
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
@@ -236,18 +294,19 @@ def _masked(logits, *, q0: int, k0: int, causal: bool, window: Optional[int],
 
 def _sdpa(q, k, v, *, causal: bool = True, window: Optional[int] = None,
           q_offset: int = 0, kv_valid: Optional[int] = None,
-          softcap: float = 0.0):
+          softcap: float = 0.0, scale: Optional[float] = None):
     """Grouped-query attention with q-axis chunking: the plain version.
 
     q [B,S,H,Dk], k [B,T,KV,Dk], v [B,T,KV,Dv] -> [B,S,H,Dv]; fp32 logits
     and softmax, probabilities rounded to v's dtype before P.V (the
-    reference's contract).  Masks are formed per chunk.  DTensors (a
-    sharded run) go to :func:`_sdpa_sharded`.
+    reference's contract).  Masks are formed per chunk.  ``scale`` is the
+    softmax scale (``Dk ** -0.5`` if None).  DTensors (a sharded run) go
+    to :func:`_sdpa_sharded`.
     """
     if getattr(q, "placements", None) is not None:
         return _sdpa_sharded(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, kv_valid=kv_valid,
-                             softcap=softcap)
+                             softcap=softcap, scale=scale)
     b, s, h, dk = q.shape
     t, kvh = k.shape[1], k.shape[2]
     group = h // kvh
@@ -257,7 +316,7 @@ def _sdpa(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 
     def attend(qc, row0: int):
         c = qc.shape[1]
-        logits = _scores(qc, kf, softcap)
+        logits = _scores(qc, kf, softcap, scale)
         rules = current_rules()
         if rules is not None and rules.get("attn_q"):
             # Context-parallel scores, only for archs whose head counts
@@ -279,7 +338,8 @@ def _sdpa(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return out.to(q.dtype)
 
 
-def _sdpa_sharded(q, k, v, *, causal, window, q_offset, kv_valid, softcap):
+def _sdpa_sharded(q, k, v, *, causal, window, q_offset, kv_valid, softcap,
+                  scale=None):
     """:func:`_sdpa` on DTensors, computed on each rank's local shards, as
     XLA's partitioner splits the reference's attention (DTensor cannot: the
     GQA reshape and the score einsum would merge two split dims).
@@ -354,7 +414,7 @@ def _sdpa_sharded(q, k, v, *, causal, window, q_offset, kv_valid, softcap):
     kv_dims = dims("kv_seq")
     if not kv_dims:
         out = _sdpa(ql, kl, vl, causal=causal, window=window, q_offset=q_off,
-                    kv_valid=kv_valid, softcap=softcap)
+                    kv_valid=kv_valid, softcap=softcap, scale=scale)
         return DTensor.from_local(out.contiguous(), mesh, q_to,
                                   run_check=False)
 
@@ -370,7 +430,7 @@ def _sdpa_sharded(q, k, v, *, causal, window, q_offset, kv_valid, softcap):
     bl, sl, hq, _ = ql.shape
     kl_h = kl.shape[2]
     logits = _scores(ql.reshape(bl, sl, kl_h, hq // kl_h, dk), kl.float(),
-                     softcap)
+                     softcap, scale)
     logits = _masked(logits, q0=q_off,
                      k0=split_start(mesh, kv_dims, kl.shape[1]),
                      causal=causal, window=window, kv_valid=kv_valid)
@@ -387,7 +447,8 @@ def _sdpa_sharded(q, k, v, *, causal, window, q_offset, kv_valid, softcap):
 
 
 def _flash(q, k, v, *, causal: bool, q_offset: int, softcap: float,
-           window: Optional[int] = None, kv_len: Optional[int] = None):
+           window: Optional[int] = None, kv_len: Optional[int] = None,
+           scale: Optional[float] = None):
     """The flash kernel for a call within its contract; raise otherwise.
 
     The kernels have no backward (nor has the Pallas kernel they replace),
@@ -401,8 +462,9 @@ def _flash(q, k, v, *, causal: bool, q_offset: int, softcap: float,
     that holds both (the reduced configs' 8 to 64, MLA's V to 192): zero
     columns of Q and K leave ``Q K^T`` unchanged, zero columns of V give
     zero output columns, which are cut off, and the softmax scale stays
-    ``Dk``'s.  In decode that pads a copy of the whole cache every step,
-    which is acceptable for the reduced configs only.
+    ``Dk``'s (or ``scale``, where given).  In decode that pads a copy of
+    the whole cache every step, which is acceptable for the reduced
+    configs only.
     """
     if any(getattr(t, "placements", None) is not None for t in (q, k, v)):
         raise NotImplementedError(
@@ -427,12 +489,15 @@ def _flash(q, k, v, *, causal: bool, q_offset: int, softcap: float,
     masks = dict(causal=causal, q_offset=q_offset, window=window,
                  kv_len=kv_len)
     if padded == dk == dv:
+        if scale is not None:
+            masks["scale"] = scale
         return flash_attention_bshd(q, k, v, **masks)
     if padded != dk:
         q, k = (F.pad(t, (0, padded - dk)) for t in (q, k))
     if padded != dv:
         v = F.pad(v, (0, padded - dv))
-    out = flash_attention_bshd(q, k, v, scale=softmax_scale(dk), **masks)
+    out = flash_attention_bshd(
+        q, k, v, scale=softmax_scale(dk) if scale is None else scale, **masks)
     return out[..., :dv]
 
 
@@ -554,71 +619,110 @@ def apply_mla(cfg, p, x, positions, spec, mode="train", cache=None, pos=None,
               plain_attention: bool = False):
     """Returns (y, new_cache); modes as :func:`apply_attn`.
 
-    Decode is the reference's absorbed form: it scores in latent space with
-    fp32 einsums and never forms per-head K/V (no kernel computes it; it is
-    plain PyTorch on every device).  Train and prefill attend with
-    Dk = nope + rope (192) against Dv (128): on the card :func:`_flash`
-    zero-pads V to Dk, runs the D 192 kernel at the scale Dk**-0.5 (the
-    reference's) and cuts the output back to Dv columns; ``plain_attention``
-    asks for :func:`_sdpa` instead.
+    Decode is the reference's absorbed form: it scores in latent space and
+    never forms per-head K/V, over the ``pos + 1`` latent rows written so
+    far.  With no gradient needed, plain tensors and shapes
+    :func:`repro_torch.kernels.mla_decode.fits` takes, the query is
+    absorbed in the model's dtype (``q_lat = q_nope w_uk``) and
+    :func:`repro_torch.kernels.mla_decode.mla_decode` attends (its kernels
+    on the card, its plain version on the CPU); otherwise the query is
+    absorbed in fp32 and :func:`repro_torch.kernels.mla_decode.plain`
+    attends, and ``w_uv`` takes its fp32 output.  Train and prefill
+    attend with Dk = nope + rope (192) against Dv (128): on the card
+    :func:`_flash` zero-pads V to Dk, runs the D 192 kernel and cuts the
+    output back to Dv columns; ``plain_attention`` asks for :func:`_sdpa`
+    instead.  The softmax scale is ``Dk ** -0.5``, times YaRN's
+    :func:`softmax_factor` for a configuration that sets ``cfg.yarn``.
     """
+    with span("layer.mla"):
+        return _apply_mla(cfg, p, x, positions, spec, mode, cache, pos,
+                          plain_attention)
+
+
+def _apply_mla(cfg, p, x, positions, spec, mode, cache, pos,
+               plain_attention):
     m = cfg.mla
     b, s, d = x.shape
     h = cfg.n_heads
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    factor = softmax_factor(cfg)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5 * factor
+    decode = mode == "decode"
+    kernel = (decode and not plain_attention
+              and not _needs_grad(x, *p.values())
+              and all(getattr(t, "placements", None) is None
+                      for t in (x, cache["ckv"], cache["krope"]))
+              and mla_decode.fits(b, s, h, cache["ckv"], cache["krope"],
+                                  x.dtype))
 
-    q = torch.einsum("bsd,dhk->bshk", x, _w(p["wq"], x.dtype))
-    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-    dkv = torch.einsum("bsd,dr->bsr", x, _w(p["w_dkv"], x.dtype))
-    c_kv, k_rope = dkv.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
-    c_kv = apply_norm({"scale": p["kv_norm"]}, c_kv, "rmsnorm", cfg.norm_eps)
-
-    if mode == "decode":
-        newpos = (pos + torch.arange(s, device=x.device))[None, :].expand(b, s)
-        q_rope = rotate(cfg, q_rope, newpos)
-        k_rope = rotate(cfg, k_rope[:, :, None, :], newpos)[:, :, 0]
-        ckv_c, kr_c = cache["ckv"], cache["krope"]
-        write_seq(ckv_c, pos, c_kv.to(ckv_c.dtype))
-        write_seq(kr_c, pos, k_rope.to(kr_c.dtype))
-        ckv_c = shard(ckv_c, ("batch", "kv_seq", None))
-        kr_c = shard(kr_c, ("batch", "kv_seq", None))
-        t = ckv_c.shape[1]
-        ckv_f = ckv_c.float()
-        q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(),
-                             _w(p["w_uk"], F32))                   # [B,s,H,R]
-        logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv_f)
-                  + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                                 kr_c.float())) * scale
-        valid = torch.arange(t, device=x.device) <= pos
-        logits = logits.masked_fill(~valid, -1e30)
-        probs = torch.softmax(logits, dim=-1)
-        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv_f)
-        o = torch.einsum("bshr,rhv->bshv", o_lat,
-                         _w(p["w_uv"], F32)).to(x.dtype)
-        new_cache = cache
-    else:
-        pos_ids = (positions if positions is not None
-                   else torch.arange(s, device=x.device)[None, :])
+    with span("mla.q"):
+        q = torch.einsum("bsd,dhk->bshk", x, _w(p["wq"], x.dtype))
+        q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+        dkv = torch.einsum("bsd,dr->bsr", x, _w(p["w_dkv"], x.dtype))
+        c_kv, k_rope = dkv.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+        c_kv = apply_norm({"scale": p["kv_norm"]}, c_kv, "rmsnorm",
+                          cfg.norm_eps)
+        if decode:
+            pos_ids = (pos + torch.arange(s, device=x.device))[None, :].expand(b, s)
+        else:
+            pos_ids = (positions if positions is not None
+                       else torch.arange(s, device=x.device)[None, :])
         q_rope = rotate(cfg, q_rope, pos_ids)
         k_rope = rotate(cfg, k_rope[:, :, None, :], pos_ids)
-        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, _w(p["w_uk"], x.dtype))
-        v = torch.einsum("bsr,rhv->bshv", c_kv, _w(p["w_uv"], x.dtype))
-        k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)], dim=-1)
-        qfull = torch.cat([q_nope, q_rope], dim=-1)
-        qfull = shard(qfull, ("batch", "seq", "heads", None))
-        k = shard(k, ("batch", "seq", "heads", None))
+        if kernel:
+            q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                                 _w(p["w_uk"], x.dtype))           # [B,s,H,R]
+        elif decode:
+            q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(),
+                                 _w(p["w_uk"], F32))
+        else:
+            k_nope = torch.einsum("bsr,rhk->bshk", c_kv, _w(p["w_uk"], x.dtype))
+            v = torch.einsum("bsr,rhv->bshv", c_kv, _w(p["w_uv"], x.dtype))
+            k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_dim)],
+                          dim=-1)
+            qfull = torch.cat([q_nope, q_rope], dim=-1)
+            qfull = shard(qfull, ("batch", "seq", "heads", None))
+            k = shard(k, ("batch", "seq", "heads", None))
+
+    if decode:
+        with span("mla.cache_write"):
+            ckv_c, kr_c = cache["ckv"], cache["krope"]
+            write_seq(ckv_c, pos, c_kv.to(ckv_c.dtype))
+            write_seq(kr_c, pos, k_rope[:, :, 0].to(kr_c.dtype))
+            ckv_c = shard(ckv_c, ("batch", "kv_seq", None))
+            kr_c = shard(kr_c, ("batch", "kv_seq", None))
+        with span("mla.kernel"):
+            attend = mla_decode.mla_decode if kernel else mla_decode.plain
+            o_lat = attend(q_lat, q_rope, ckv_c, kr_c, pos + 1, scale)
+        with span("mla.out"):
+            if kernel:
+                o = torch.einsum("bshr,rhv->bshv", o_lat,
+                                 _w(p["w_uv"], x.dtype))
+            else:
+                o = torch.einsum("bshr,rhv->bshv", o_lat,
+                                 _w(p["w_uv"], F32)).to(x.dtype)
+            y = _mla_out(p, x, o)
+        return y, cache
+
+    # Without YaRN the kernels and _sdpa take their default scale, Dk**-0.5.
+    attn_scale = None if factor == 1.0 else scale
+    with span("mla.kernel"):
         if x.is_cuda and not plain_attention:
             o = _flash(qfull, k, v, causal=cfg.causal, q_offset=0,
-                       window=None, softcap=0.0)
+                       window=None, softcap=0.0, scale=attn_scale)
         else:
-            o = _sdpa(qfull, k, v, causal=cfg.causal)
-        new_cache = None
-        if mode == "prefill":
+            o = _sdpa(qfull, k, v, causal=cfg.causal, scale=attn_scale)
+    new_cache = None
+    if mode == "prefill":
+        with span("mla.cache_write"):
             new_cache = {"ckv": c_kv, "krope": k_rope[:, :, 0]}
+    with span("mla.out"):
+        return _mla_out(p, x, o), new_cache
 
+
+def _mla_out(p, x, o):
     o = shard(o, ("batch", "seq", "heads", None))
     y = torch.einsum("bshv,hvd->bsd", o, _w(p["wo"], x.dtype))
-    return shard(y, ("batch", "seq", "d_model")), new_cache
+    return shard(y, ("batch", "seq", "d_model"))
 
 
 def mla_cache_schema(cfg, spec, batch: int, max_len: int) -> Dict[str, Spec]:

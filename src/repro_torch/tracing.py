@@ -36,7 +36,11 @@ these names):
 ``serve.decode_step`` (``launch.serve.serve``); ``model.embed``,
 ``model.head`` (``models.transformer.forward``); ``layer.attn`` with
 ``attn.qkv``, ``attn.cache_write``, ``attn.kernel``, ``attn.out``
-(``models.layers.apply_attn``); ``layer.moe`` with ``moe.route``, then
+(``models.layers.apply_attn``); ``layer.mla`` with ``mla.q``
+(projections, rope, the query's absorption), ``mla.cache_write``,
+``mla.kernel`` (the attention call: in decode ``kernels.mla_decode`` or
+the plain einsums) and ``mla.out`` (``models.layers.apply_mla``);
+``layer.moe`` with ``moe.route``, then
 on the capacity path ``moe.dispatch``, ``moe.experts``, ``moe.combine``,
 ``moe.shared``, or on the routed path (decode) ``moe.routed``, then
 ``moe.aux`` (``models.layers.apply_moe``).

@@ -154,6 +154,39 @@ def test_profiler_records_nested_spans_as_the_layout_predicts(arch):
         assert children == want, (above, children)
 
 
+#: ``layer.mla``'s children, once each in prefill and in decode.
+MLA_CHILDREN = {"mla.q", "mla.cache_write", "mla.kernel", "mla.out"}
+
+
+def test_mla_spans_nest_in_their_layer():
+    """deepseek's reduced stack: one ``layer.mla`` a layer and forward,
+    inside a prefill or a decode step, each holding its four children
+    once; decode's children in the order the layer runs them."""
+    cfg, params = _model("deepseek-v2-lite-16b")
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = _serve(cfg, params)
+    buf = tracing.spans()
+    names = Counter(s[0] for s in buf)
+    n_mla = sum(s.mixer == "mla" for s in cfg.layers())
+    forwards = out["hit"].count(False) + sum(out["decode_steps"])
+    assert names["layer.mla"] == n_mla * forwards
+    for child in MLA_CHILDREN:
+        assert names[child] == names["layer.mla"], child
+    children = {}
+    for i, (name, start, end, parent) in enumerate(buf):
+        if name == "layer.mla":
+            assert buf[parent][0] in ("serve.prefill", "serve.decode_step")
+        if name in MLA_CHILDREN:
+            assert buf[parent][0] == "layer.mla"
+            assert buf[parent][1] <= start and end <= buf[parent][2]
+            children.setdefault(parent, []).append(name)
+    for parent, kids in children.items():
+        if buf[buf[parent][3]][0] == "serve.decode_step":
+            assert kids == ["mla.q", "mla.cache_write", "mla.kernel", "mla.out"]
+        else:
+            assert kids == ["mla.q", "mla.kernel", "mla.cache_write", "mla.out"]
+
+
 def _largest_wall_clock_step(fn):
     """Run ``fn`` while a thread samples the wall clock against the
     monotonic one every millisecond; returns the largest jump between two
