@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every kernel of the paths from the sources in ``src/repro_torch``
-(one nvcc per source for sm_90a, all started together), then runs fifteen
+(one nvcc per source for sm_90a, all started together), then runs sixteen
 phases, printing one JSON line each and stopping with a non-zero exit at the
 first that fails:
 
@@ -92,13 +92,26 @@ first that fails:
              kernel's by the profiler beside the byte bound, the plain
              version's, the absorbed einsums over every slot (the path it
              replaced) and SDPA's over the decompressed per-head K / V;
+  rope_cache GQA decode's rope and K / V cache write in one launch
+             (``kernels/rope_cache``) at B 4 and the attention shapes of
+             qwen2-moe-a2.7b, llama3.2-1b, gemma3-4b (a ring slot, a global
+             layer), nemotron-4-340b and a YaRN table, at positions 0, 2,047
+             and 16,446, bf16 and fp32: the rotated q and both caches bit for
+             bit against ``layers.rotate`` + ``write_seq`` on the card (the
+             count of elements that differ and the largest |difference|
+             recorded); two controls that must
+             differ (the position one too high, k written one slot late);
+             at qwen2-moe's B 4 the kernel's time by CUDA events and by the
+             profiler beside its byte bound, and the host us a call of the
+             kernel's wrapper and of the ops it replaces;
   serve      the serving path: ``repro_torch.launch.serve`` at full width
              (llama3.2-1b, bf16, seeded random weights; 6 requests of batch
              4, 1024-token prompts, 32 generated tokens, three distinct
              prompts so the KV tier sees three misses and three hits), with
              every bf16 attention call required on a new route (wgmma
              launches = layers x prefills, splitkv launches = layers x decode
-             steps, simt none), the tier's stored caches unchanged by
+             steps, simt none), the rope / cache-write kernel once a layer a
+             decode step (none in prefill), the tier's stored caches unchanged by
              decoding, a bf16 check and an f32 gate at full width: logits
              through the kernels against logits through the plain attention;
   train      the training path: ``python -m repro_torch.launch.train`` and
@@ -145,7 +158,8 @@ first that fails:
              seeded weights; the serve phase's requests), wgmma launches =
              layers x prefills, splitkv = layers x decode steps, simt none,
              the routed MoE pair 2 x MoE layers x decode steps (prefill on
-             the capacity path);
+             the capacity path), the rope / cache-write kernel once an
+             attention layer a decode step (none in prefill);
              the tier's caches bit-equal to fresh prefills, which also count
              each MoE layer's dropped (token, k) pairs at capacity factor
              1.25; a traced hit request; with the routing pinned to an f32
@@ -161,7 +175,7 @@ first that fails:
              requests of B 4 x 2,048-token prompts (the window masks half
              of each local prefill's keys), 32 generated tokens on rings
              that wrap; wgmma launches = layers x prefills, splitkv = layers
-             x decode steps, simt none; the model's calls recorded (windowed
+             x decode steps, simt none, rope_cache = layers x decode steps; the model's calls recorded (windowed
              prefills, ring and global decodes with their kv_len); the
              tier's caches bit-equal to fresh prefills; a traced hit; bf16
              logits through the kernels no further from the f32 plain run's
@@ -178,7 +192,10 @@ first that fails:
              per layer:
              a 1,024-token bf16 prefill and 8 decode steps, finite, the
              launches per route, the MLA decode pair's 2 x MLA layers x
-             steps in bf16 and none in prefill or in f32, the first
+             steps in bf16 and none in prefill or in f32, the rope /
+             cache-write kernel's GQA layers x steps in bf16 and in f32 and
+             none in prefill (the reduced configs' card runs: GQA layers x
+             their 3 decode steps), the first
              layer's caches within 2^-5 of a
              prefill of the whole sequence; in f32 activations on the first
              8 layers each step's logits within 2^-4 of each row's scale of
@@ -1808,7 +1825,7 @@ def phase_serve(dev) -> dict:
 
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ttl_scan
+    from repro_torch.kernels import rope_cache, ttl_scan
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import forward, layers
     from repro_torch.serve import prefill
@@ -1819,12 +1836,14 @@ def phase_serve(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     fa.reset_launches()
     ttl_scan.ttl_cost_surface.launches = 0
+    rope_cache.launches = 0
     t0 = time.perf_counter()
     res = launch_serve.run(args)
     wall = time.perf_counter() - t0
     launches = fa.flash_attention_bshd.launches
     route_launches = dict(fa.flash_attention_bshd.route_launches)
     ttl_launches = ttl_scan.ttl_cost_surface.launches
+    rope_launches = rope_cache.launches
     peak = torch.cuda.max_memory_allocated(dev)
     cfg, params, tier = res["cfg"], res["params"], res["tier"]
     tier_stats = json.loads(json.dumps(tier.stats))     # before the traced run
@@ -1834,6 +1853,9 @@ def phase_serve(dev) -> dict:
     want_launches = cfg.n_layers * (prefills + steps)
     want_routes = {"wgmma": cfg.n_layers * prefills,
                    "splitkv": cfg.n_layers * steps, "simt": 0}
+    # The rope / cache-write kernel: one launch a layer in each decode
+    # forward, none in prefill.
+    want_rope = cfg.n_layers * steps
     tokens = torch.stack(res["tokens"])
     tokens_ok = (tuple(tokens.shape) == (args.requests, args.batch, args.gen)
                  and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
@@ -1975,6 +1997,7 @@ def phase_serve(dev) -> dict:
     torch.cuda.empty_cache()
 
     ok = (launches == want_launches and route_launches == want_routes
+          and rope_launches == want_rope > 0
           and prefills == 3 and tokens_ok and all(payload_ok) and gate_ok
           and bf16_ok)
     emit("serve", ok=ok, args=SERVE_ARGS, layers=cfg.n_layers,
@@ -1982,6 +2005,8 @@ def phase_serve(dev) -> dict:
          vocab=cfg.vocab, prefills=prefills, decode_steps=steps,
          flash_launches=launches, flash_launches_expected=want_launches,
          route_launches=route_launches, route_launches_expected=want_routes,
+         rope_cache_launches=rope_launches,
+         rope_cache_launches_expected=want_rope,
          ttl_scan_launches=ttl_launches,
          prefill_ms=[1e3 * x for x in prefill_s],
          decode_ms_per_step=1e3 * decode_s / steps,
@@ -1994,7 +2019,7 @@ def phase_serve(dev) -> dict:
     if not ok:
         raise SystemExit("serving path check failed")
     return {"routes": route_launches, "simt_gate": simt_launches,
-            "ttl_launches": ttl_launches}
+            "ttl_launches": ttl_launches, "rope_cache": rope_launches}
 
 
 # -- the training path ---------------------------------------------------------
@@ -2936,6 +2961,196 @@ def phase_mla_decode(dev) -> dict:
     return {r["kv_len"]: r for r in rows}
 
 
+# -- GQA decode's rope and cache write (kernels/rope_cache) ---------------------
+
+#: (name, arch, Hq, Hkv, D, cache rows): the attention shapes of the configs
+#: whose decode takes the kernel; the slot is the position modulo the rows.
+ROPE_CACHE_SHAPES = [
+    ("qwen2-moe", "qwen2-moe-a2.7b", 16, 16, 128, 64),
+    ("llama3.2-1b", "llama3.2-1b", 32, 8, 64, 64),
+    ("gemma3-ring", "gemma3-4b", 8, 4, 256, 1024),
+    ("gemma3-global", "gemma3-4b", 8, 4, 256, 48),
+    ("nemotron", "nemotron-4-340b", 96, 8, 192, 32),
+    ("yarn", "llama3.2-1b", 16, 4, 64, 32),
+]
+ROPE_CACHE_POSITIONS = (0, 2047, 16_446)
+ROPE_CACHE_BATCH = 4
+ROPE_KERNELS = ("rope_cache_kernel",)
+
+
+def rope_cache_bound_ms(b: int, hq: int, hkv: int, d: int,
+                        itemsize: int = 2) -> float:
+    """Least time for one call: q, k, v read, q_out and the two cache rows
+    written, the frequency table read, over the HBM rate."""
+    n_bytes = 2 * itemsize * b * (hq + 2 * hkv) * d + 4 * d // 2
+    return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def rope_cache_cfg(arch: str, name: str):
+    """``arch``'s config; for ``yarn`` llama3.2-1b's with deepseek-v2-lite's
+    YaRN table and a cos / sin scale of mscale(1) / mscale(0.707)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if name == "yarn":
+        yarn = dataclasses.replace(get_config("deepseek-v2-lite-16b").yarn,
+                                   mscale=1.0)
+        cfg = dataclasses.replace(cfg, rope_theta=10_000.0, yarn=yarn)
+    return cfg
+
+
+def rope_cache_inputs(shape, dtype, dev, seed: int):
+    import torch
+
+    _name, _arch, hq, hkv, d, rows = shape
+    b = ROPE_CACHE_BATCH
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*dims):
+        return torch.randn(dims, generator=gen, device=dev).to(dtype)
+
+    return (draw(b, 1, hq, d), draw(b, 1, hkv, d), draw(b, 1, hkv, d),
+            draw(b, rows, hkv, d), draw(b, rows, hkv, d))
+
+
+def rope_cache_replaced(cfg, q, k, v, kc, vc, pos: int, slot: int):
+    """The ops the kernel replaces in ``layers._apply_attn``'s decode step:
+    the positions, ``rotate`` for q and k, two ``write_seq`` copies."""
+    import torch
+    from repro_torch.distributed.sharding import write_seq
+    from repro_torch.models import layers
+
+    b, s = q.shape[:2]
+    positions = (pos + torch.arange(s, device=q.device))[None, :].expand(b, s)
+    q = layers.rotate(cfg, q, positions)
+    k = layers.rotate(cfg, k, positions)
+    write_seq(kc, slot, k.to(kc.dtype))
+    write_seq(vc, slot, v.to(vc.dtype))
+    return q
+
+
+def rope_cache_diff(cfg, inputs, pos: int, slot: int, want_pos: int,
+                    want_slot: int) -> tuple:
+    """The kernel at (pos, slot) against the replaced ops at (want_pos,
+    want_slot): (elements whose bits differ in q, k_cache and v_cache, the
+    largest |got - want| over the three)."""
+    import torch
+    from repro_torch.kernels import rope_cache
+    from repro_torch.models import layers
+
+    q, k, v, kc, vc = inputs
+    kc_w, vc_w, kc_g, vc_g = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    want = rope_cache_replaced(cfg, q, k, v, kc_w, vc_w, want_pos, want_slot)
+    inv, scale = layers._rope_table(q.shape[-1], cfg.rope_theta,
+                                    getattr(cfg, "yarn", None), q.device)
+    got = rope_cache.rope_cache(q, k, v, kc_g, vc_g, pos, slot, inv, scale)
+    view = torch.int16 if q.element_size() == 2 else torch.int32
+    pairs = ((got, want), (kc_g, kc_w), (vc_g, vc_w))
+    return ([int((a.view(view) != b.view(view)).sum()) for a, b in pairs],
+            max(float((a.float() - b.float()).abs().max()) for a, b in pairs))
+
+
+def host_us(fn, calls: int = 400) -> float:
+    """Host microseconds a call of ``fn`` (median of 5 runs of ``calls``
+    back-to-back calls, the device synchronised only around each run)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return statistics.median(per)
+
+
+def phase_rope_cache(dev) -> dict:
+    import torch
+    from repro_torch.kernels import rope_cache
+    from repro_torch.models import layers
+
+    rows, ok = [], True
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape in ROPE_CACHE_SHAPES:
+                cfg = rope_cache_cfg(shape[1], shape[0])
+                for i, pos in enumerate(ROPE_CACHE_POSITIONS):
+                    inputs = rope_cache_inputs(shape, dtype, dev, 3000 + i)
+                    slot = pos % shape[5]
+                    fits = rope_cache.fits(cfg.rope, *inputs)
+                    diff, err = rope_cache_diff(cfg, inputs, pos, slot, pos,
+                                                slot)
+                    ok &= fits and diff == [0, 0, 0] and err == 0.0
+                    rows.append({"shape": shape[0], "dtype": str(dtype)[6:],
+                                 "pos": pos, "slot": slot, "fits": fits,
+                                 "elements": [t.numel() for t in
+                                              (inputs[0], inputs[3],
+                                               inputs[4])],
+                                 "differing": diff, "max_abs_err": err})
+        shape = ROPE_CACHE_SHAPES[0]
+        cfg = rope_cache_cfg(shape[1], shape[0])
+        inputs = rope_cache_inputs(shape, torch.bfloat16, dev, 3100)
+        pos, slot = 2047, 2047 % shape[5]
+        controls = {
+            "position_one_high": rope_cache_diff(cfg, inputs, pos + 1, slot,
+                                                 pos, slot)[0],
+            "slot_one_late": rope_cache_diff(cfg, inputs, pos,
+                                             (slot + 1) % shape[5], pos,
+                                             slot)[0]}
+        caught = (controls["position_one_high"][0] > 0
+                  and controls["slot_one_late"][1] > 0)
+        q, k, v, kc, vc = inputs
+        inv, scale = layers._rope_table(q.shape[-1], cfg.rope_theta, None,
+                                        dev)
+
+        def kernel():
+            return rope_cache.rope_cache(q, k, v, kc, vc, pos, slot, inv,
+                                         scale)
+
+        def replaced():
+            return rope_cache_replaced(cfg, q, k, v, kc, vc, pos, slot)
+
+        torch.cuda.synchronize()
+        ms = cuda_ms(kernel, 50, 7)
+        dev_us = pair_device_us(kernel, ROPE_KERNELS)
+        replaced_ms = cuda_ms(replaced, 50, 7)
+        replaced_us = pair_device_us(replaced, ROPE_KERNELS).get("all")
+        kernel_host = host_us(kernel)
+        replaced_host = host_us(replaced)
+        fits_host = host_us(lambda: rope_cache.fits(cfg.rope, *inputs))
+    b, hq, hkv, d = ROPE_CACHE_BATCH, shape[2], shape[3], shape[4]
+    bound_ms = rope_cache_bound_ms(b, hq, hkv, d)
+    kernel_us = dev_us.get("rope_cache_kernel")
+    timing = {"shape": {"batch": b, "heads": [hq, hkv], "head_dim": d},
+              "dtype": "bfloat16", "pos": pos, "ms": ms, "device_us": dev_us,
+              "replaced_ms": replaced_ms,
+              "replaced_device_us": replaced_us,
+              "host_us_a_call": kernel_host,
+              "fits_host_us_a_call": fits_host,
+              "replaced_host_us_a_call": replaced_host,
+              "bound_ms": bound_ms, "bound_by": "bytes",
+              "share_of_bound_device": (None if not kernel_us
+                                        else 1e3 * bound_ms / kernel_us),
+              "max_abs_err": max(r["max_abs_err"] for r in rows),
+              "max_differing_elements": max(max(r["differing"])
+                                            for r in rows)}
+    ok = ok and caught
+    emit("rope_cache", ok=ok, rows=rows, controls=controls,
+         controls_caught=caught, timing=timing,
+         build_log=rope_cache.LIBRARY.log[-2000:],
+         sass_instructions=sass_instructions(rope_cache.LIBRARY))
+    if not ok:
+        raise SystemExit("the rope / cache-write kernel differs from the ops "
+                         "it replaces, or a control was not caught")
+    return timing
+
+
 # -- the MoE serving path (qwen2-moe-a2.7b) ------------------------------------
 
 MOE_SERVE_ARGS = ["--arch", "qwen2-moe-a2.7b", "--no-reduced", "--requests",
@@ -3007,7 +3222,7 @@ def phase_moe_serve(dev, smi: str) -> dict:
 
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_decode, ttl_scan
+    from repro_torch.kernels import moe_decode, rope_cache, ttl_scan
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import forward, layers
     from repro_torch.serve import prefill
@@ -3021,12 +3236,14 @@ def phase_moe_serve(dev, smi: str) -> dict:
     fa.reset_launches()
     ttl_scan.ttl_cost_surface.launches = 0
     moe_decode.launches = 0
+    rope_cache.launches = 0
     t0 = time.perf_counter()
     res = launch_serve.run(args)
     wall = time.perf_counter() - t0
     route_launches = dict(fa.flash_attention_bshd.route_launches)
     ttl_launches = ttl_scan.ttl_cost_surface.launches
     moe_launches = moe_decode.launches
+    rope_launches = rope_cache.launches
     peak = torch.cuda.max_memory_allocated(dev)
     cfg, params, tier = res["cfg"], res["params"], res["tier"]
     param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
@@ -3042,6 +3259,10 @@ def phase_moe_serve(dev, smi: str) -> dict:
     n_moe = sum(spec.mlp == "moe" for spec in cfg.layers())
     want_moe = 2 * n_moe * steps
     gates["moe_decode_launches"] = moe_launches == want_moe > 0
+    # The rope / cache-write kernel: one launch an attention layer in each
+    # decode forward, none in prefill.
+    want_rope = cfg.n_layers * steps
+    gates["rope_cache_launches"] = rope_launches == want_rope > 0
     gates["three_misses_three_hits"] = res["hit"] == [False] * 3 + [True] * 3
     tokens = torch.stack(res["tokens"])
     gates["tokens"] = (tuple(tokens.shape) == (args.requests, args.batch,
@@ -3176,6 +3397,8 @@ def phase_moe_serve(dev, smi: str) -> dict:
          route_launches=route_launches, route_launches_expected=want_routes,
          moe_decode_launches=moe_launches,
          moe_decode_launches_expected=want_moe,
+         rope_cache_launches=rope_launches,
+         rope_cache_launches_expected=want_rope,
          ttl_scan_launches=ttl_launches,
          prefill_ms=[1e3 * x for x in prefill_s],
          decode_ms_per_step=1e3 * decode_s / steps,
@@ -3208,7 +3431,7 @@ def phase_moe_serve(dev, smi: str) -> dict:
         raise SystemExit("MoE serving path check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
     return {"routes": route_launches, "simt_gate": simt_launches,
-            "moe_decode": moe_launches}
+            "moe_decode": moe_launches, "rope_cache": rope_launches}
 
 
 def tree_slice(tree, n: int):
@@ -3245,7 +3468,7 @@ def phase_gemma_serve(dev, smi: str) -> dict:
 
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ttl_scan
+    from repro_torch.kernels import rope_cache, ttl_scan
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import forward, layers
     from repro_torch.serve import prefill
@@ -3266,6 +3489,7 @@ def phase_gemma_serve(dev, smi: str) -> dict:
 
     fa.reset_launches()
     ttl_scan.ttl_cost_surface.launches = 0
+    rope_cache.launches = 0
     layers.flash_attention_bshd = recorded
     try:
         t0 = time.perf_counter()
@@ -3275,6 +3499,7 @@ def phase_gemma_serve(dev, smi: str) -> dict:
         layers.flash_attention_bshd = kernel_attn
     route_launches = dict(fa.flash_attention_bshd.route_launches)
     ttl_launches = ttl_scan.ttl_cost_surface.launches
+    rope_launches = rope_cache.launches
     peak = torch.cuda.max_memory_allocated(dev)
     cfg, params, tier = res["cfg"], res["params"], res["tier"]
     tier_stats = json.loads(json.dumps(tier.stats))
@@ -3286,6 +3511,8 @@ def phase_gemma_serve(dev, smi: str) -> dict:
     want_routes = {"wgmma": cfg.n_layers * prefills,
                    "splitkv": cfg.n_layers * steps, "simt": 0}
     gates["route_launches"] = route_launches == want_routes
+    # Ring and global decodes alike: one rope / cache-write launch a layer.
+    gates["rope_cache_launches"] = rope_launches == cfg.n_layers * steps > 0
     gates["three_misses_three_hits"] = res["hit"] == [False] * 3 + [True] * 3
     tokens = torch.stack(res["tokens"])
     gates["tokens"] = (tuple(tokens.shape) == (args.requests, args.batch,
@@ -3420,6 +3647,7 @@ def phase_gemma_serve(dev, smi: str) -> dict:
          prefills=prefills, decode_steps=steps,
          route_launches=route_launches, route_launches_expected=want_routes,
          flash_calls=calls_seen, ttl_scan_launches=ttl_launches,
+         rope_cache_launches=rope_launches,
          prefill_ms=[1e3 * x for x in prefill_s],
          decode_ms_per_step=1e3 * decode_s / steps,
          tokens_per_s=n_tok / (sum(prefill_s) + decode_s), wall_s=wall,
@@ -3438,7 +3666,8 @@ def phase_gemma_serve(dev, smi: str) -> dict:
     if not ok:
         raise SystemExit("gemma3-4b serving path check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
-    return {"routes": route_launches, "ttl_launches": ttl_launches}
+    return {"routes": route_launches, "ttl_launches": ttl_launches,
+            "rope_cache": rope_launches}
 
 
 # -- the other mixers: MLA, Mamba, RWKV6 ---------------------------------------
@@ -3490,14 +3719,15 @@ def decode_steps(cfg, params, toks):
     """Prefill ``MIXER_PROMPT`` tokens (each MoE call's drops per row
     counted), grow the caches, decode ``MIXER_STEPS`` more; returns
     (prefill logits, each step's last logits, the caches, per-call drops,
-    prefill s, decode s, the MLA decode kernels' launches in the prefill
-    and in the decode steps)."""
+    prefill s, decode s, the MLA decode kernels' launches and the rope /
+    cache-write kernel's, each in the prefill and in the decode steps)."""
     import torch
-    from repro_torch.kernels import mla_decode
+    from repro_torch.kernels import mla_decode, rope_cache
     from repro_torch.models import forward
     from repro_torch.serve import grow_cache
 
     mla_decode.launches = 0
+    rope_cache.launches = 0
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3507,7 +3737,7 @@ def decode_steps(cfg, params, toks):
         caches = grow_cache(cfg, caches, MIXER_PROMPT + MIXER_STEPS)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        mla_prefill = mla_decode.launches
+        mla_prefill, rope_prefill = mla_decode.launches, rope_cache.launches
         dec = []
         for j in range(MIXER_STEPS):
             pos = MIXER_PROMPT + j
@@ -3516,7 +3746,9 @@ def decode_steps(cfg, params, toks):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     mla = {"prefill": mla_prefill, "decode": mla_decode.launches - mla_prefill}
-    return logits, dec, caches, rd.drops(), t1 - t0, t2 - t1, mla
+    rope = {"prefill": rope_prefill,
+            "decode": rope_cache.launches - rope_prefill}
+    return logits, dec, caches, rd.drops(), t1 - t0, t2 - t1, mla, rope
 
 
 def layer0_caches(caches):
@@ -3601,8 +3833,8 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
     # bf16, the main path: prefill and decode on the kernels (MLA's decode
     # in latent space on the MLA decode pair, two launches a layer a step).
     fa.reset_launches()
-    logits, dec, caches, drops16, prefill_s, decode_s, mla16 = decode_steps(
-        cfg, params, toks)
+    (logits, dec, caches, drops16, prefill_s, decode_s, mla16,
+     rope16) = decode_steps(cfg, params, toks)
     routes = dict(fa.flash_attention_bshd.route_launches)
     finite = bool(torch.isfinite(logits).all()) and all(
         bool(torch.isfinite(d).all()) for d in dec)
@@ -3626,7 +3858,8 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
     cfg32 = dataclasses.replace(cfg, act_dtype="float32", n_layers=n_chk)
     p32 = dict(params, blocks={k: tree_slice(v, reps)
                                for k, v in params["blocks"].items()})
-    _lg, dec32, _c, drops32, _ps, _ds, mla32 = decode_steps(cfg32, p32, toks)
+    _lg, dec32, _c, drops32, _ps, _ds, mla32, rope32 = decode_steps(
+        cfg32, p32, toks)
     del _lg, _c
     steps = []
     for j in range(MIXER_STEPS):
@@ -3656,12 +3889,19 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
     want_routes = {"wgmma": n_attn + n_mla, "splitkv": n_attn * MIXER_STEPS,
                    "simt": 0}
     want_mla = {"prefill": 0, "decode": 2 * n_mla * MIXER_STEPS}
+    # The rope / cache-write kernel: one launch a GQA layer a decode step
+    # (bf16 and f32 alike), none in prefill.
+    n_attn32 = sum(s.mixer in ("attn", "swa") for s in cfg32.layers())
+    want_rope = {"prefill": 0, "decode": n_attn * MIXER_STEPS}
+    want_rope32 = {"prefill": 0, "decode": n_attn32 * MIXER_STEPS}
     gates = {"finite": finite,
              "logits_not_all_zero": all(r["scale"] > 0 for s in steps
                                         for r in s),
              "route_launches": routes == want_routes,
              "mla_decode_launches": mla16 == want_mla,
              "mla_decode_launches_f32": mla32 == {"prefill": 0, "decode": 0},
+             "rope_cache_launches": rope16 == want_rope,
+             "rope_cache_launches_f32": rope32 == want_rope32,
              "layer0_caches": max(cache_err.values()) <= LAYER0_CACHE_TOL,
              "decode_vs_full_f32": all(r["ok"] for s in steps for r in s)}
     if mla is not None:
@@ -3675,6 +3915,9 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
            "route_launches_expected": want_routes,
            "mla_decode_launches": mla16,
            "mla_decode_launches_expected": want_mla,
+           "rope_cache_launches": {"bf16": rope16, "f32": rope32},
+           "rope_cache_launches_expected": {"bf16": want_rope,
+                                            "f32": want_rope32},
            "route_launches_after_main_path": {k: routes32[k] - routes[k]
                                         for k in routes},
            "prefill_drops_per_row_bf16": [sum(c[b] for c in drops16)
@@ -3694,7 +3937,8 @@ def mixer_run(arch: str, n_layers: int, dev) -> tuple:
            "peak_memory_bytes": peak}
     del params, p32, dec, dec32
     torch.cuda.empty_cache()
-    return out, {**routes, "mla_decode": mla16["decode"]}
+    return out, {**routes, "mla_decode": mla16["decode"],
+                 "rope_cache": rope16["decode"] + rope32["decode"]}
 
 
 def reduced_card_vs_cpu(arch: str, dev) -> tuple:
@@ -3710,6 +3954,7 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rope_cache
     from repro_torch.models import forward, init_params
     from repro_torch.serve import grow_cache
     from repro_torch.tree import leaves_with_path, tree_map
@@ -3739,8 +3984,10 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
         return out
 
     fa.reset_launches()
+    rope_cache.launches = 0
     got = run(p_dev, dev)
     routes = dict(fa.flash_attention_bshd.route_launches)
+    rope_launches = rope_cache.launches
     want = run(p_cpu, torch.device("cpu"))
     for key, w in want.items():
         g = got[key].cpu().float()
@@ -3749,12 +3996,18 @@ def reduced_card_vs_cpu(arch: str, dev) -> tuple:
     n_attn = sum(s.mixer in ("attn", "swa") for s in cfg.layers())
     n_mla = sum(s.mixer == "mla" for s in cfg.layers())
     want_routes = {"wgmma": 0, "splitkv": 0, "simt": n_attn * 5 + n_mla * 2}
+    # The rope / cache-write kernel: a launch a GQA layer in each of the
+    # card's three decode steps (the CPU's run takes its plain version).
+    want_rope = n_attn * 3
     ok = (max(errs.values()) <= REDUCED_TOL and routes == want_routes
+          and rope_launches == want_rope
           and all(bool(torch.isfinite(x).all()) for x in got.values()))
     return ({"arch": cfg.name, "ok": ok,
              "max_rel_err": max(errs.values()), "rel_err": errs,
-             "route_launches": routes, "route_launches_expected": want_routes},
-            routes)
+             "route_launches": routes, "route_launches_expected": want_routes,
+             "rope_cache_launches": rope_launches,
+             "rope_cache_launches_expected": want_rope},
+            {**routes, "rope_cache": rope_launches})
 
 
 def phase_mixers(dev, smi: str) -> dict:
@@ -3764,17 +4017,19 @@ def phase_mixers(dev, smi: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     moe_decode.launches = 0
     runs, routes = [], {"wgmma": 0, "splitkv": 0, "simt": 0}
-    mla_launches = 0
+    mla_launches = rope_launches = 0
     for arch, n_layers in MIXER_RUNS:
         row, r = mixer_run(arch, n_layers, dev)
         runs.append(row)
         routes = {k: routes[k] + r[k] for k in routes}
         mla_launches += r["mla_decode"]
+        rope_launches += r["rope_cache"]
     reduced = []
     for arch in REDUCED_ARCHS:
         row, r = reduced_card_vs_cpu(arch, dev)
         reduced.append(row)
         routes = {k: routes[k] + r[k] for k in routes}
+        rope_launches += r["rope_cache"]
 
     gates = {r["arch"]: all(r["gates"].values()) for r in runs}
     gates.update({f"reduced {r['arch']}": r["ok"] for r in reduced})
@@ -3784,12 +4039,12 @@ def phase_mixers(dev, smi: str) -> dict:
          layer0_cache_tol=LAYER0_CACHE_TOL,
          reduced=reduced, reduced_tol=REDUCED_TOL, route_launches=routes,
          moe_decode_launches=moe_decode.launches,
-         mla_decode_launches=mla_launches)
+         mla_decode_launches=mla_launches, rope_cache_launches=rope_launches)
     if not ok:
         raise SystemExit("mixer check failed: "
                          + ", ".join(k for k, v in gates.items() if not v))
     return {**routes, "moe_decode": moe_decode.launches,
-            "mla_decode": mla_launches}
+            "mla_decode": mla_launches, "rope_cache": rope_launches}
 
 DIST_ARCH = "llama3.2-1b"
 PIPE_BATCH, PIPE_SEQ, PIPE_MB = 4, 1024, 4
@@ -4136,6 +4391,33 @@ def mla_decode_entry(rows: dict, mixers_launches: int) -> dict:
     }
 
 
+def rope_cache_entry(timing: dict, by_path: dict) -> dict:
+    """The summary's row of the rope / cache-write kernel: qwen2-moe's B 4
+    decode call; ``by_path`` its launches in each serving phase."""
+    return {
+        "name": "rope_cache", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rope_cache.cu",
+        "kernels": list(ROPE_KERNELS),
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package's apply_attn "
+                         "rotates q and k and writes the cache with plain jnp",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        **{k: timing[k] for k in ("max_abs_err", "max_differing_elements")},
+        **{k: timing[k] for k in ("ms", "bound_ms", "bound_by", "device_us",
+                                  "share_of_bound_device", "host_us_a_call",
+                                  "replaced_ms", "replaced_device_us",
+                                  "replaced_host_us_a_call")},
+        "plain_ms": timing["replaced_ms"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call rotates and writes the "
+                        "cache; the ops it replaces are the yardstick "
+                        "(replaced_ms)",
+        "shape": timing["shape"], "call": "one attention layer, one decode "
+                                          "step, bf16",
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -4152,14 +4434,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import (flash_attention, mla_decode, moe_decode,
-                                     ttl_scan)
+                                     rope_cache, ttl_scan)
     from repro_torch.kernels.ops import resolve_device
 
     dev = resolve_device("cuda")
     smi = nvidia_smi()
     t0 = time.perf_counter()
     libraries = (ttl_scan.LIBRARY, *flash_attention.LIBRARIES.values(),
-                 moe_decode.LIBRARY, mla_decode.LIBRARY)
+                 moe_decode.LIBRARY, mla_decode.LIBRARY, rope_cache.LIBRARY)
     for lib in libraries:            # one nvcc per source, all at once
         lib.start()
     for lib in libraries:
@@ -4180,6 +4462,7 @@ def main() -> int:
         flash = phase_flash(dev)
         moe_kern = phase_moe_decode(dev)
         mla_kern = phase_mla_decode(dev)
+        rope_kern = phase_rope_cache(dev)
         serve = phase_serve(dev)
         train = phase_train(dev, smi)
         encode = phase_encode(dev, smi)
@@ -4297,6 +4580,10 @@ def main() -> int:
                     d256=moe_rows("simt_d256")),
         moe_decode_entry(moe_kern, moe["moe_decode"], mixers["moe_decode"]),
         mla_decode_entry(mla_kern, mixers["mla_decode"]),
+        rope_cache_entry(rope_kern, {"serve": serve["rope_cache"],
+                                     "moe_serve": moe["rope_cache"],
+                                     "gemma_serve": gemma["rope_cache"],
+                                     "mixers": mixers["rope_cache"]}),
     ]}
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps({**RESULT, "summary": summary}, indent=1))

@@ -9,6 +9,9 @@
   mla_decode -- MLA's decode attention in latent space over the cache
                 rows written so far, split over the keys, then merged
                 (CUDA C++, csrc/mla_decode.cu), and its plain version
+  rope_cache -- GQA decode's rope of q and k and its K / V cache write in
+                one launch (CUDA C++, csrc/rope_cache.cu), and its plain
+                version
   build     -- nvcc build and ctypes loading of the kernel sources
   ref       -- the plain PyTorch version of every kernel, and the RWKV6
                recurrence's oracle

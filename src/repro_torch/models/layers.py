@@ -53,7 +53,7 @@ from ..distributed.sharding import (_partial_where, batch_local, batch_mean,
                                     current_rules, elementwise, gather_fsdp,
                                     local_of, shard, split_start, whole,
                                     write_seq)
-from ..kernels import mla_decode, moe_decode
+from ..kernels import mla_decode, moe_decode, rope_cache
 from ..kernels.flash_attention import (HEAD_DIMS, flash_attention_bshd,
                                        softmax_scale)
 from ..tracing import span
@@ -177,15 +177,6 @@ def yarn_inv_freq(dim: int, theta: float, yarn) -> torch.Tensor:
     return inter * ramp + extra * (1 - ramp)
 
 
-@functools.lru_cache(maxsize=None)
-def _yarn_table(dim: int, theta: float, yarn, device) -> Tuple[torch.Tensor, float]:
-    """(frequencies on ``device``, cos / sin scale), once per configuration
-    and device."""
-    scale = (yarn_mscale(yarn.factor, yarn.mscale)
-             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
-    return yarn_inv_freq(dim, theta, yarn).to(device), scale
-
-
 def softmax_factor(cfg) -> float:
     """What YaRN multiplies the attention's softmax scale by:
     ``yarn_mscale(factor, mscale_all_dim) ** 2`` (1 without YaRN; the JAX
@@ -196,22 +187,46 @@ def softmax_factor(cfg) -> float:
     return yarn_mscale(y.factor, y.mscale_all_dim) ** 2
 
 
-def apply_rope(x, positions, theta: float, yarn=None):
-    """x [B, S, H, D], positions [B, S] (or [S]); ``yarn`` a
-    :class:`~repro_torch.configs.base.YarnCfg` or None (plain rope)."""
-    d = x.shape[-1]
-    if positions.dim() == 1:
-        positions = positions[None, :]
+def _build_rope_table(dim: int, theta: float, yarn,
+                      device) -> Tuple[torch.Tensor, float]:
     if yarn is None:
-        ang = positions.float()[..., None] * _inv_freq(d, theta, x.device)
-        return _rotate_halves(x, torch.cos(ang)[:, :, None, :],
-                              torch.sin(ang)[:, :, None, :])
-    inv, scale = _yarn_table(d, float(theta), yarn, x.device)
-    ang = positions.float()[..., None] * inv
+        return _inv_freq(dim, theta, device), 1.0
+    scale = (yarn_mscale(yarn.factor, yarn.mscale)
+             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+    return yarn_inv_freq(dim, theta, yarn).to(device), scale
+
+
+_kept_rope_table = functools.lru_cache(maxsize=None)(_build_rope_table)
+
+
+def _rope_table(dim: int, theta: float, yarn, device) -> Tuple[torch.Tensor, float]:
+    """(frequencies [dim // 2] fp32 on ``device``, cos / sin scale): plain
+    rope's (scale 1) or YaRN's, for :func:`apply_rope` and
+    :mod:`repro_torch.kernels.rope_cache`.  Built once per (dim, theta,
+    YaRN, device) and kept; under ``FakeTensorMode`` (the dry-run) built
+    afresh, since a fake tensor must not outlive its mode."""
+    fake = torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+    build = _build_rope_table if fake is not None else _kept_rope_table
+    return build(dim, float(theta), yarn, device)
+
+
+def rope_at(x, positions, inv_freq, scale: float = 1.0):
+    """x [B, S, H, D] rotated at positions [B, S] by the table ``inv_freq``
+    [D / 2] with cos / sin scaled by ``scale`` (see :func:`_rope_table`)."""
+    ang = positions.float()[..., None] * inv_freq
     cos, sin = torch.cos(ang), torch.sin(ang)
     if scale != 1.0:
         cos, sin = cos * scale, sin * scale
     return _rotate_halves(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def apply_rope(x, positions, theta: float, yarn=None):
+    """x [B, S, H, D], positions [B, S] (or [S]); ``yarn`` a
+    :class:`~repro_torch.configs.base.YarnCfg` or None (plain rope)."""
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    return rope_at(x, positions, *_rope_table(x.shape[-1], theta, yarn,
+                                              x.device))
 
 
 def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
@@ -510,7 +525,11 @@ def apply_attn(
       train   -- full sequence, no cache;
       prefill -- full sequence, build the cache (ring layout for SWA);
       decode  -- x is [B,1,d], read+update cache at ``pos`` (an int), in
-                 place.
+                 place.  A call :func:`repro_torch.kernels.rope_cache.fits`
+                 takes rotates q and k and writes the K / V rows in one
+                 :func:`~repro_torch.kernels.rope_cache.rope_cache` call (one
+                 launch on the card, its plain version on the CPU), bit-equal
+                 to :func:`rotate` and ``write_seq``; any other keeps those.
     """
     with span("layer.attn"):
         return _apply_attn(cfg, p, x, positions, spec, mode, cache, pos,
@@ -522,6 +541,7 @@ def _apply_attn(cfg, p, x, positions, spec, mode, cache, pos,
     b, s, d = x.shape
     window = spec.window
     kernel = x.is_cuda and not plain_attention
+    decode = mode == "decode"
     with span("attn.qkv"):
         q = torch.einsum("bsd,dhk->bshk", x, _w(p["wq"], x.dtype))
         k = torch.einsum("bsd,dhk->bshk", x, _w(p["wk"], x.dtype))
@@ -529,20 +549,30 @@ def _apply_attn(cfg, p, x, positions, spec, mode, cache, pos,
         q = shard(q, ("batch", "seq", "heads", None))
         k = shard(k, ("batch", "seq", "kv_heads", None))
         v = shard(v, ("batch", "seq", "kv_heads", None))
-        if mode == "decode":
-            positions = (pos + torch.arange(s, device=x.device))[None, :].expand(b, s)
-        elif positions is None:
-            positions = torch.arange(s, device=x.device)[None, :]
-        q = rotate(cfg, q, positions)
-        k = rotate(cfg, k, positions)
+        # One decode token: rope and the cache write in one call below.
+        fused = decode and rope_cache.fits(cfg.rope, q, k, v, cache["k"],
+                                           cache["v"])
+        if not fused:
+            if decode:
+                positions = (pos + torch.arange(s, device=x.device))[None, :].expand(b, s)
+            elif positions is None:
+                positions = torch.arange(s, device=x.device)[None, :]
+            q = rotate(cfg, q, positions)
+            k = rotate(cfg, k, positions)
 
-    if mode == "decode":
+    if decode:
         with span("attn.cache_write"):
             k_cache, v_cache = cache["k"], cache["v"]
             cache_len = k_cache.shape[1]
             slot = (pos % cache_len) if window is not None else pos
-            write_seq(k_cache, slot, k.to(k_cache.dtype))
-            write_seq(v_cache, slot, v.to(v_cache.dtype))
+            if fused:
+                inv, scale = _rope_table(q.shape[-1], cfg.rope_theta,
+                                         getattr(cfg, "yarn", None), q.device)
+                q = rope_cache.rope_cache(q, k, v, k_cache, v_cache, pos,
+                                          slot, inv, scale)
+            else:
+                write_seq(k_cache, slot, k.to(k_cache.dtype))
+                write_seq(v_cache, slot, v.to(v_cache.dtype))
             k_cache = shard(k_cache, ("batch", "kv_seq", "kv_heads", None))
             v_cache = shard(v_cache, ("batch", "kv_seq", "kv_heads", None))
         # Ring buffer: every live slot is within the window by

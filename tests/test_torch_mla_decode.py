@@ -151,7 +151,7 @@ def test_yarn_table_and_scales_match_the_closed_form():
     assert layers.softmax_factor(cfg) == pytest.approx(m * m, rel=1e-12)
     assert layers.softmax_factor(cfg) == pytest.approx(1.5896, abs=1e-4)
     assert layers.softmax_factor(get_config("qwen2-moe-a2.7b")) == 1.0
-    _freq, cs = layers._yarn_table(DR, 10000.0, YARN, torch.device("cpu"))
+    _freq, cs = layers._rope_table(DR, 10000.0, YARN, torch.device("cpu"))
     assert cs == 1.0
 
 
